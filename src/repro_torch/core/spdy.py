@@ -1,0 +1,289 @@
+"""Structured SPDY search (paper §3.2) — population-batched engine.
+
+Finds the per-module sparsity-level assignment that meets a runtime budget
+while minimizing (sensitivity-weighted) layer-wise error:
+
+* prior p_s = relative layer-wise error ||W_s X - W X|| / ||W X|| (value 1
+  for a fully dropped module);
+* fixed mutation budget, each step mutating ~10% of the per-module
+  sensitivity coefficients;
+* every DP candidate achieves the runtime budget by construction (times
+  are ceil-quantized into bins), giving the speedup guarantee.
+
+The search runs in rounds of ``pop`` candidates per target: all
+candidates of a round are mutated from the round-start coefficients,
+solved with one vectorized DP pass (`dp_select_batched`), deduplicated
+against a score memo, and the surviving unique assignments of the whole
+family are scored in one ``eval_batched`` call (one host sync per round).
+Any scored candidate whose true table runtime meets another target's
+budget is harvested for that target. Per-target RNG streams are spawned
+from ``seed``. Host-side numpy throughout; the same seed gives the same
+candidates as the JAX package's engine.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Sequence, Union
+
+import numpy as np
+
+from .database import ModuleDB
+from .latency import LatencyTable
+
+SeedLike = Union[int, np.random.SeedSequence]
+
+
+@dataclass
+class SearchResult:
+    assignment: Dict[str, int]
+    runtime: float
+    speedup: float
+    score: float
+    coeffs: np.ndarray
+    history: List[float] = field(default_factory=list)
+    n_evals: int = 0          # unique assignments actually scored (family-wide)
+
+
+def quantize_times(times: List[np.ndarray], budget: float,
+                   nbins: int = 1024) -> List[np.ndarray]:
+    """Ceil-quantize per-module level times into ``nbins`` budget bins.
+
+    Done once per (budget, nbins): the mutation population only rescales
+    costs, never times, so every DP call for a target shares this.
+    """
+    scale = budget / nbins if budget > 0 else 1.0
+    return [np.minimum(np.ceil(t / scale).astype(np.int64), nbins + 1)
+            for t in times]
+
+
+def dp_select_batched(costs: List[np.ndarray], times=None, budget=None,
+                      nbins: int = 1024, tq: Optional[List[np.ndarray]] = None):
+    """Pick one level per module minimizing sum(cost) s.t. sum(time) <=
+    budget, for a ``(P,)`` candidate batch at once.
+
+    ``costs``: one ``(P, n_levels_i)`` array per module. Times are shared
+    by the batch: pass pre-quantized ``tq`` (from `quantize_times`) or
+    ``times`` + ``budget``. Returns ``(choices (P, m), totals (P,))``
+    with rows of -1 (and inf) for infeasible candidates.
+    """
+    m = len(costs)
+    P = int(costs[0].shape[0])
+    if tq is None:
+        tq = quantize_times(times, budget, nbins)
+
+    INF = np.inf
+    dp = np.full((P, nbins + 1), INF)
+    dp[:, 0] = 0.0
+    choice = np.zeros((m, P, nbins + 1), np.int16)
+    for i in range(m):
+        best = np.full((P, nbins + 1), INF)
+        arg = np.zeros((P, nbins + 1), np.int16)
+        ci = costs[i]
+        for l in range(ci.shape[1]):
+            t = int(tq[i][l])
+            if t > nbins:
+                continue
+            # update only the reachable [t:] tail in place
+            cand = (dp + ci[:, l:l + 1] if t == 0
+                    else dp[:, :-t] + ci[:, l:l + 1])
+            bs = best if t == 0 else best[:, t:]
+            upd = cand < bs
+            np.copyto(bs, cand, where=upd)
+            np.copyto(arg if t == 0 else arg[:, t:], np.int16(l),
+                      where=upd)
+        dp = best
+        choice[i] = arg
+    rows = np.arange(P)
+    b = np.argmin(dp, axis=1)
+    totals = dp[rows, b]
+    infeasible = ~np.isfinite(totals)
+    choices = np.full((P, m), -1, np.int64)
+    if infeasible.all():
+        return choices, totals
+    bb = b.astype(np.int64)
+    for i in range(m - 1, -1, -1):
+        l = choice[i, rows, bb].astype(np.int64)
+        choices[:, i] = l
+        # feasible rows stay in range by DP construction; clamp so rows
+        # being discarded as infeasible cannot index out of bounds
+        bb = np.clip(bb - tq[i][l], 0, nbins)
+    choices[infeasible] = -1
+    return choices, totals
+
+
+def _spawn_rngs(seed: SeedLike, n: int) -> List[np.random.Generator]:
+    """Mutually independent per-target RNG streams."""
+    root = (seed if isinstance(seed, np.random.SeedSequence)
+            else np.random.SeedSequence(seed))
+    return [np.random.default_rng(c) for c in root.spawn(n)]
+
+
+def _mutate_population(rng: np.random.Generator, coeffs: np.ndarray,
+                       pop: int, mutate_frac: float,
+                       include_base: bool) -> np.ndarray:
+    """A round's candidate coefficients — (pop, m), row 0 the unmutated
+    base when ``include_base`` (round 0)."""
+    m = len(coeffs)
+    out = np.empty((pop, m))
+    for p in range(pop):
+        if include_base and p == 0:
+            out[p] = coeffs
+            continue
+        c = coeffs.copy()
+        mask = rng.random(m) < mutate_frac
+        if not mask.any():
+            mask[rng.integers(m)] = True
+        c[mask] *= np.exp(rng.normal(0, 0.6, mask.sum()))
+        out[p] = c
+    return out
+
+
+def search_family(db: Dict[str, ModuleDB], table: LatencyTable,
+                  targets: Sequence[float], *, steps: int = 1000,
+                  pop: int = 16, mutate_frac: float = 0.1,
+                  nbins: int = 1024,
+                  eval_batched: Optional[
+                      Callable[[List[Dict[str, int]]], np.ndarray]] = None,
+                  seed: SeedLike = 0, share_pool: bool = True,
+                  verbose: bool = False) -> Dict[float, SearchResult]:
+    """One amortized SPDY search over a whole speedup-target family.
+
+    ``steps`` counts candidates per target. ``eval_batched`` scores a list
+    of assignments in one call (see ``oneshot.make_batched_eval``);
+    without it candidates get the paper's analytic sum-of-squared-priors
+    score.
+    """
+    targets = list(targets)
+    K = len(targets)
+    if K == 0:
+        return {}
+    if pop <= 0:
+        raise ValueError(f"pop must be positive, got {pop}")
+    names = list(db.keys())
+    m = len(names)
+    priors = [db[n].priors.astype(np.float64) for n in names]
+    times = [table.level_times(db[n].mod).astype(np.float64) for n in names]
+    dense = table.base + sum(t[0] for t in times)
+
+    budgets = []
+    for t in targets:
+        budget = dense / t - table.base
+        if budget <= 0:
+            raise ValueError(
+                f"target speedup {t}x below the unprunable base "
+                f"({table.base:.2e}s of {dense:.2e}s dense)")
+        budgets.append(budget)
+    tqs = [quantize_times(times, b, nbins) for b in budgets]
+
+    def assemble(choices) -> Dict[str, int]:
+        return {n: int(db[n].levels[c]) for n, c in zip(names, choices)}
+
+    def runtime(choices) -> float:
+        return table.base + sum(t[c] for t, c in zip(times, choices))
+
+    rngs = _spawn_rngs(seed, K)
+    coeffs = [np.ones(m) for _ in range(K)]
+    best: List[Optional[SearchResult]] = [None] * K
+    harvested: List[Optional[SearchResult]] = [None] * K
+    hist: List[List[float]] = [[] for _ in range(K)]
+    done = [0] * K
+    memo: Dict[tuple, float] = {}
+    producer: Dict[tuple, np.ndarray] = {}  # choices-tuple -> coeffs row
+    n_evals = 0
+
+    rnd = 0
+    while any(d < steps for d in done):
+        entries = []  # (k, C, choices) per target active this round
+        for k in range(K):
+            P_k = min(pop, steps - done[k])
+            if P_k <= 0:
+                continue
+            C = _mutate_population(rngs[k], coeffs[k], P_k, mutate_frac,
+                                   include_base=(rnd == 0))
+            done[k] += P_k
+            costs = [C[:, [i]] * priors[i][None, :] for i in range(m)]
+            ch, _ = dp_select_batched(costs, tq=tqs[k], nbins=nbins)
+            entries.append((k, C, ch))
+
+        # dedup this round's feasible candidates against the shared memo
+        new_keys: List[tuple] = []
+        for k, C, ch in entries:
+            for p in range(ch.shape[0]):
+                if ch[p, 0] < 0:
+                    continue
+                key = tuple(int(c) for c in ch[p])
+                if key not in memo and key not in producer:
+                    producer[key] = C[p].copy()
+                    new_keys.append(key)
+
+        if new_keys:
+            if eval_batched is None:
+                vals = [float(sum(p[c] ** 2 for p, c in zip(priors, key)))
+                        for key in new_keys]
+            else:
+                vals = np.asarray(eval_batched([assemble(key)
+                                                for key in new_keys]),
+                                  np.float64)
+            for key, v in zip(new_keys, vals):
+                memo[key] = float(v)
+            n_evals += len(new_keys)
+
+        def result_for(key, score, cand_coeffs):
+            rt = runtime(key)
+            return SearchResult(assignment=assemble(key), runtime=rt,
+                                speedup=dense / rt, score=score,
+                                coeffs=np.asarray(cand_coeffs).copy())
+
+        # own-candidate acceptance drives the mutation trajectory: coeffs
+        # only ever follow a target's own stream
+        for k, C, ch in entries:
+            for p in range(ch.shape[0]):
+                if ch[p, 0] < 0:
+                    continue
+                key = tuple(int(c) for c in ch[p])
+                score = memo[key]
+                hist[k].append(score)
+                if best[k] is None or score < best[k].score:
+                    best[k] = result_for(key, score, C[p])
+                    coeffs[k] = np.asarray(C[p]).copy()
+                    if verbose:
+                        print(f"  spdy[{targets[k]}x] round {rnd}: "
+                              f"score={score:.5f} "
+                              f"speedup={best[k].speedup:.2f}x")
+
+        # cross-target harvest: a scored assignment whose true table
+        # runtime meets another target's budget is a free candidate for
+        # that target; kept apart from ``best`` so it never redirects the
+        # target's own stream
+        if share_pool and K > 1:
+            for key in new_keys:
+                score = memo[key]
+                rt = runtime(key)
+                for k in range(K):
+                    cur = min((r.score for r in (best[k], harvested[k])
+                               if r is not None), default=None)
+                    if cur is not None and score >= cur:
+                        continue
+                    # exact budget check: the hard speedup guarantee
+                    if rt <= dense / targets[k]:
+                        harvested[k] = result_for(key, score,
+                                                  producer[key])
+                        if verbose:
+                            print(f"  spdy[{targets[k]}x] round {rnd}: "
+                                  f"harvested score={score:.5f}")
+        producer.clear()
+        rnd += 1
+
+    out: Dict[float, SearchResult] = {}
+    for k, t in enumerate(targets):
+        res = best[k]
+        if harvested[k] is not None and (res is None
+                                         or harvested[k].score < res.score):
+            res = harvested[k]
+        if res is None:
+            raise RuntimeError(
+                f"SPDY found no feasible assignment for target {t}x")
+        res.history = hist[k]
+        res.n_evals = n_evals
+        out[t] = res
+    return out

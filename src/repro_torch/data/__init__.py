@@ -1,0 +1,3 @@
+from .synthetic import calibration_batches, make_batch_np, synthetic_tokens
+
+__all__ = ["calibration_batches", "make_batch_np", "synthetic_tokens"]

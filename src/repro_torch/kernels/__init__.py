@@ -1,0 +1,15 @@
+"""Hand-written Hopper kernels of the port, each beside its plain
+PyTorch version and behind a wrapper that counts its launches."""
+from .hessian_accum import hessian_accum, hessian_accum_plain
+from .obs_downdate import obs_downdate, obs_downdate_plain
+
+KERNELS = (hessian_accum, obs_downdate)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+__all__ = ["KERNELS", "hessian_accum", "hessian_accum_plain", "obs_downdate",
+           "obs_downdate_plain", "reset_launch_counts"]

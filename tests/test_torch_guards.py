@@ -1,0 +1,69 @@
+"""Guards of the PyTorch port: it imports neither JAX nor the JAX package,
+and its entry points run on the GPU unless the caller asks for the CPU."""
+import ast
+import pathlib
+
+import pytest
+import torch
+
+from repro_torch.configs import GPT2_SMALL
+from repro_torch.core.database import SnapshotCache, build_database
+from repro_torch.core.hessian import collect_hessians
+from repro_torch.core.latency import build_table
+from repro_torch.core.oneshot import calib_loss_fn, oneshot_prune
+from repro_torch.models import model_init
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.runtime.costmodel import InferenceEnv
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_neither_jax_nor_the_jax_package(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_files_are_found():
+    names = {p.name for p in PORT_FILES}
+    assert {"oneshot.py", "obs_downdate.py", "chip_smoke.py"} <= names
+
+
+ENV = InferenceEnv(batch=2, seq=8, hw=None)
+TINY = GPT2_SMALL.replace(num_layers=1, d_model=32, d_ff=64, num_heads=2,
+                          num_kv_heads=2, vocab_size=64)
+ENTRY_POINTS = {
+    "model_init": lambda: model_init(TINY),
+    "params_from_numpy": lambda: params_from_numpy({}),
+    "collect_hessians": lambda: collect_hessians(TINY, {}, [{}]),
+    "build_database": lambda: build_database(TINY, {}, {}),
+    "build_table": lambda: build_table(TINY, ENV, "measure"),
+    "SnapshotCache": lambda: SnapshotCache(TINY, {}),
+    "calib_loss_fn": lambda: calib_loss_fn(TINY, []),
+    "oneshot_prune": lambda: oneshot_prune(TINY, {}, [], ENV, [2.0]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_points_default_to_the_gpu(name):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ENTRY_POINTS[name]()
+
+
+def test_cpu_runs_only_when_asked():
+    params = model_init(TINY, device="cpu")
+    assert params["embed"]["table"].device.type == "cpu"
