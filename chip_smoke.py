@@ -17,7 +17,11 @@ Phases (any failure exits non-zero and prints no result):
    d_model 768, 12 heads, d_ff 3072, vocab 50257) with seeded weights,
    numpy calibration batches, a latency table measured on the card and
    targets 1.5x/2x/3x. The kernels' launch counts are zeroed just before
-   and read just after; each kernel must have launched.
+   and read just after; each kernel must have launched. Then the family
+   is searched again on the same database and table by the analytic
+   prior sum, which must give one member per target with rising
+   speedups (on random weights the loss-scored family can collapse to
+   one member), and the table is rebuilt twice to show its spread.
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 product on the
 card is a full fp32 product and the fp32 tolerances below hold.
@@ -41,6 +45,9 @@ SRC = os.path.join(ROOT, "src")
 # device memory bandwidth
 PEAK_FP32 = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# the main path's measured latency table: each module level the mean of
+# 50 calls after 5 untimed ones
+LATENCY_KW = {"reps": 50, "warmup": 5}
 
 
 def fail(msg: str) -> int:
@@ -119,11 +126,14 @@ def check_kernels(torch, kernels):
     ms = time_ms(lambda: kernels.hessian_accum(x, acc))
     plain_ms = time_ms(lambda: hessian_accum_plain(x, acc))
     lib_ms = time_ms(lambda: torch.addmm(acc, x.T, x))
-    b, by = bound_ms(4.0 * (n * d + 2 * d * d), 2.0 * n * d * d + d * d,
-                     PEAK_FP32)
+    # X^T X is symmetric: its D(D+1)/2 distinct entries take N FMA each;
+    # adding acc is one more operation per output entry
+    flop = float(n) * d * (d + 1) + d * d
+    b, by = bound_ms(4.0 * (n * d + 2 * d * d), flop, PEAK_FP32)
     print(f"hessian_accum N={n} D={d} fp32+acc: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, torch.addmm {lib_ms:.4f} ms, bound {b:.4f} ms "
-          f"({by}), {2.0 * n * d * d / ms / 1e9:.1f} TFLOP/s")
+          f"({by}), {flop / 1e9:.2f} GFLOP needed, "
+          f"{flop / ms / 1e9:.1f} TFLOP/s")
     records["hessian_accum"] = {
         "name": "hessian_accum", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/hessian_accum.cu",
@@ -278,8 +288,9 @@ def run_main_path(torch, kernels):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = oneshot_prune(cfg, params, calib, env, targets,
-                        latency_backend="measure", search_steps=48,
-                        search_pop=16, seed=0, device="cuda")
+                        latency_backend="measure", latency_kw=LATENCY_KW,
+                        search_steps=48, search_pop=16, seed=0,
+                        device="cuda")
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
@@ -287,7 +298,8 @@ def run_main_path(torch, kernels):
     print(f"main path: {cfg.name} layers={cfg.num_layers} "
           f"d_model={cfg.d_model} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
           f"dtype={cfg.dtype}; calibration 32 x 512 tokens in batches of 8; "
-          f"env batch={env.batch} seq={env.seq} {env.mode}, measured table")
+          f"env batch={env.batch} seq={env.seq} {env.mode}, measured table "
+          f"({LATENCY_KW})")
     print(f"main path: setup (weights + tokens) {setup_s:.3f} s, "
           f"oneshot_prune {total_s:.3f} s, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -312,7 +324,56 @@ def run_main_path(torch, kernels):
     check(math.isfinite(res.dense_loss), "non-finite dense loss")
     for name, n in launches.items():
         check(n > 0, f"{name} never launched on the main path")
+    distinct = len({tuple(sorted(res.variants[t].assignment.items()))
+                    for t in targets})
+    print(f"loss-scored family: {distinct} distinct member(s) for "
+          f"{len(targets)} targets (on seeded random weights pruning can "
+          f"lower the calibration loss, so one member may win every target)")
+    check_prior_family(torch, cfg, params, calib, res, targets)
+    check_table_spread(cfg, env, res)
     return launches
+
+
+def check_prior_family(torch, cfg, params, calib, res, targets):
+    """The family searched again on the main path's own database and
+    table, scored by the analytic prior sum (``eval_with_loss=False``):
+    a score that grows with every removal, so each target must get its
+    own member and the speedups must rise with the targets."""
+    from repro_torch.core.database import apply_assignment
+    from repro_torch.core.oneshot import calib_loss_fn
+    from repro_torch.core.spdy import search_family
+
+    fam = search_family(res.db, res.table, targets, steps=48, pop=16, seed=0)
+    loss = calib_loss_fn(cfg, calib[:1], device="cuda")
+    speedups = []
+    for t in targets:
+        r = fam[t]
+        lv = loss(apply_assignment(cfg, params, res.db, r.assignment))
+        print(f"  prior-scored {t}x: speedup {r.speedup:.4f}x, runtime "
+              f"{r.runtime * 1e3:.4f} ms, prior score {r.score:.4f}, "
+              f"structures removed {sum(r.assignment.values())}, "
+              f"loss {lv:.4f}")
+        check(r.speedup >= t, f"prior-scored {t}x not met: {r.speedup:.4f}x")
+        check(math.isfinite(lv), f"prior-scored {t}x: non-finite loss")
+        speedups.append(r.speedup)
+    check(all(a < b for a, b in zip(speedups, speedups[1:])),
+          f"prior-scored family is degenerate: speedups {speedups}")
+
+
+def check_table_spread(cfg, env, res, rebuilds: int = 2):
+    """The measured table built again with the same settings: the spread
+    of its dense runtime within this run."""
+    from repro_torch.core.latency import build_table
+    from repro_torch.core.structures import registry
+
+    mods = registry(cfg)
+    dense = [res.dense_runtime * 1e3] + [
+        build_table(cfg, env, backend="measure", device="cuda",
+                    **LATENCY_KW).dense_runtime(mods) * 1e3
+        for _ in range(rebuilds)]
+    print(f"measured table dense runtime over {len(dense)} builds: "
+          + ", ".join(f"{v:.4f}" for v in dense)
+          + f" ms (spread {(max(dense) - min(dense)) / min(dense):.2%})")
 
 
 def main() -> int:

@@ -3,54 +3,52 @@
 
     python3 scripts/profile_torch_oneshot.py [--layers 12] [--steps 48]
 
-Runs the stages of ``oneshot_prune`` on GPT-2 small (full width, seeded
-weights, 32 x 512 calibration tokens, a measured latency table for batch
-16 x 128 prefill, targets 1.5x/2x/3x) one by one, each once to warm up and
-once under ``torch.profiler``. For each stage it prints the host seconds
-(ending in a synchronize), the device-busy seconds (the sum of the
-kernels' device time: one stream, so kernels do not overlap), the idle
-share, and the kernels that take the most device time.
+Runs ``oneshot_prune`` on GPT-2 small (full width, seeded weights,
+32 x 512 calibration tokens, a latency table measured for batch 16 x 128
+prefill, targets 1.5x/2x/3x) once to warm up and once under
+``torch.profiler``. ``oneshot_prune`` marks each of its stages as a
+profiler range ``oneshot_prune.<stage>``; every device activity (kernel
+or copy) is put in the stage whose range it starts in. For each stage it
+prints the host seconds (``OneShotResult.stage_seconds``, ending in a
+synchronize), the device-busy seconds (the sum of the activities' device
+time: one stream, so they do not overlap), the idle share, and the
+activities that take the most device time.
 
 Needs a GPU; prints the card's name and power limit first.
 """
 from __future__ import annotations
 
 import argparse
+import bisect
 import os
 import subprocess
 import sys
-import time
+from collections import defaultdict
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "src"))
 
-
-def _device_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    return 0.0
+RANGE = "oneshot_prune."
 
 
-def profiled(name, fn, top: int):
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()  # warm-up: cuBLAS/cuSOLVER handles, kernel builds, allocator
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        host_s = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages() if _device_us(e) > 0
-               and str(getattr(e, "device_type", "")).endswith("CUDA")]
-    busy_s = sum(_device_us(e) for e in kernels) / 1e6
-    print(f"\n[{name}] host {host_s:.4f} s, device busy {busy_s:.4f} s, "
-          f"idle share {max(0.0, 1 - busy_s / host_s):.3f}")
-    for e in sorted(kernels, key=_device_us, reverse=True)[:top]:
-        print(f"  {_device_us(e) / 1e3:10.3f} ms  {e.count:7d}x  "
-              f"{e.key[:90]}")
+def stage_activity(prof):
+    """{stage: {activity name: [device us, count]}} from a profile."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name[len(RANGE):])
+                    for e in events if e.device_type == DeviceType.CPU
+                    and e.name.startswith(RANGE))
+    starts = [r[0] for r in ranges]
+    out = defaultdict(lambda: defaultdict(lambda: [0.0, 0]))
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.name.startswith(RANGE):
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i < 0 or e.time_range.start > ranges[i][1]:
+            continue  # outside every stage
+        rec = out[ranges[i][2]][e.name]
+        rec[0] += e.time_range.elapsed_us()
+        rec[1] += 1
     return out
 
 
@@ -62,6 +60,7 @@ def main() -> int:
     args = ap.parse_args()
 
     import torch
+    from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -72,39 +71,40 @@ def main() -> int:
                          text=True).stdout.strip())
 
     from repro_torch.configs import GPT2_SMALL
-    from repro_torch.core.database import SnapshotCache, build_database
-    from repro_torch.core.hessian import collect_hessians
-    from repro_torch.core.latency import build_table
-    from repro_torch.core.oneshot import make_batched_eval
-    from repro_torch.core.spdy import search_family
+    from repro_torch.core.oneshot import oneshot_prune
     from repro_torch.data import calibration_batches
     from repro_torch.models import model_init
     from repro_torch.runtime.costmodel import InferenceEnv
 
     cfg = GPT2_SMALL.replace(num_layers=args.layers)
-    dev = "cuda"
-    params = model_init(cfg, torch.Generator().manual_seed(0), device=dev)
+    params = model_init(cfg, torch.Generator().manual_seed(0), device="cuda")
     calib = calibration_batches(cfg, 32, 512, batch=8)
     env = InferenceEnv(batch=16, seq=128, mode="prefill", hw=None)
     print(f"{cfg.name}: layers={cfg.num_layers} d_model={cfg.d_model} "
           f"d_ff={cfg.d_ff} dtype={cfg.dtype}")
 
-    hess = profiled("calibration", lambda: collect_hessians(
-        cfg, params, calib, device=dev), args.top)
-    table = profiled("latency_table", lambda: build_table(
-        cfg, env, backend="measure", device=dev), args.top)
-    db = profiled("database", lambda: build_database(
-        cfg, params, hess, device=dev), args.top)
+    def run():
+        return oneshot_prune(cfg, params, calib, env, [1.5, 2.0, 3.0],
+                             latency_backend="measure",
+                             latency_kw={"reps": 50, "warmup": 5},
+                             search_steps=args.steps, search_pop=16, seed=0,
+                             device="cuda")
 
-    def search():
-        cache = SnapshotCache(cfg, db, device=dev)
-        ev = make_batched_eval(cfg, params, cache, calib[:1], device=dev)
-        return search_family(db, table, [1.5, 2.0, 3.0], steps=args.steps,
-                             pop=16, eval_batched=ev, seed=0)
-
-    res = profiled("search", search, args.top)
-    for t, r in res.items():
-        print(f"  {t}x: speedup {r.speedup:.3f}x, evals {r.n_evals}")
+    run()  # warm-up: cuBLAS/cuSOLVER handles, kernel builds, allocator
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = run()
+    acts = stage_activity(prof)
+    for name, host_s in res.stage_seconds.items():
+        per = acts.get(name, {})
+        busy_s = sum(us for us, _ in per.values()) / 1e6
+        print(f"\n[{name}] host {host_s:.4f} s, device busy {busy_s:.4f} s, "
+              f"idle share {max(0.0, 1 - busy_s / host_s):.3f}")
+        for act, (us, n) in sorted(per.items(), key=lambda kv: -kv[1][0]
+                                   )[:args.top]:
+            print(f"  {us / 1e3:10.3f} ms  {n:7d}x  {act[:90]}")
+    for t, v in res.variants.items():
+        print(f"  {t}x: speedup {v.speedup:.3f}x, evals {v.search.n_evals}")
     return 0
 
 

@@ -1,8 +1,10 @@
 """Model configuration dataclass (the port's own copy of ``ModelConfig``).
 
-The fields mirror the JAX package's ``ModelConfig`` one for one, so a
-configuration converts between the two with ``dataclasses.asdict``. The
-port's forward runs dense self-attention stacks only; ``models.transformer``
+The fields mirror the JAX package's ``ModelConfig``, apart from the
+options that choose how the JAX program executes (``attn_impl``, the flash
+block sizes, ``remat``, ``scan_layers``): the port has no such options and
+always runs dense attention over a Python loop of layers. The port's
+forward runs dense self-attention stacks only; ``models.transformer``
 rejects the families it does not run yet.
 """
 from __future__ import annotations
@@ -63,13 +65,8 @@ class ModelConfig:
     tie_embeddings: bool = True
     norm_eps: float = 1e-5
 
-    # --- numerics / execution ---
+    # --- numerics ---
     dtype: str = "bfloat16"
-    attn_impl: str = "auto"  # auto | dense | flash_lax | flash_pallas
-    flash_block_q: int = 512
-    flash_block_k: int = 1024
-    remat: str = "block"  # none | block
-    scan_layers: bool = True
 
     # provenance
     source: str = ""

@@ -49,13 +49,38 @@ def _inverse_or_nan(h: torch.Tensor) -> torch.Tensor:
                        torch.full_like(inv, float("nan")), inv)
 
 
+def _non_finite_report(names, levels, errs, snaps16) -> List[str]:
+    """Per module whose prune went non-finite: its name and the first
+    level whose cumulative error, or float16 snapshot, is not finite (the
+    error stays non-finite once it is, so the step that failed lies
+    between the level before and that level)."""
+    errs = errs.reshape(len(names), len(levels))
+    bad_err = ~np.isfinite(errs)
+    bad_snap = ~np.isfinite(snaps16.reshape(*errs.shape, -1)).all(axis=-1)
+    out = []
+    for m, name in enumerate(names):
+        what = []
+        for label, bad in (("error", bad_err[m]), ("float16 snapshot",
+                                                   bad_snap[m])):
+            if bad.any():
+                i = int(np.argmax(bad))
+                lo, hi = (levels[i - 1] + 1 if i else 0), levels[i]
+                step = (f"removal {hi}" if lo == hi
+                        else f"one of removals {lo}..{hi}")
+                what.append(f"{label} from level {hi} ({step})")
+        if what:
+            out.append(f"{name} " + ", ".join(what))
+    return out
+
+
 def _prune_healed(prune_fn, Ws, Hraw, *, group_size, n_remove, levels,
-                  damp):
+                  damp, names):
     """Run Algorithm 1, climbing the damping ladder while the result is
     non-finite; returns host arrays ``(snaps16, errs, orders)``.
 
     Rung 0 is the caller's damp, so a run that never escalates is the
     un-healed computation; the finite check reads values fetched anyway.
+    Each failed rung names the modules that failed and where.
     """
     rungs = damp_schedule(damp)
     for attempt, rung in enumerate(rungs):
@@ -66,17 +91,14 @@ def _prune_healed(prune_fn, Ws, Hraw, *, group_size, n_remove, levels,
         snaps16 = res.snapshots.cpu().numpy()
         errs = res.errors.cpu().numpy()
         orders = res.order.cpu().numpy()
-        bad_errs = ~np.isfinite(errs).all(axis=-1)
-        bad_snaps = ~np.isfinite(snaps16).reshape(*errs.shape[:-1], -1) \
-            .all(axis=-1)
-        if not (bad_errs.any() or bad_snaps.any()):
+        bad = _non_finite_report(names, levels, errs, snaps16)
+        if not bad:
             if attempt:
                 print(f"[robustness] obs: healed non-finite prune at "
                       f"damp={rung:g} (rung {attempt})")
             return snaps16, errs, orders
-        print(f"[robustness] obs: non-finite prune at damp={rung:g}: "
-              f"errors in {int(bad_errs.sum())}, float16 snapshots in "
-              f"{int(bad_snaps.sum())} of {bad_errs.size} module(s)")
+        print(f"[robustness] obs: non-finite prune at damp={rung:g} in "
+              f"{len(bad)} of {len(names)} module(s): " + "; ".join(bad))
     raise FloatingPointError(
         f"OBS prune stayed non-finite through the damping ladder {rungs} "
         "— calibration Hessian is unusable")
@@ -125,7 +147,8 @@ def build_module_db(cfg, params, mod: PrunableModule, h_raw,
     levels = level_grid(mod)
     snaps16, errs, orders = _prune_healed(
         prune_structured, W, h_raw, group_size=mod.group_size,
-        n_remove=max(levels), levels=tuple(levels), damp=damp)
+        n_remove=max(levels), levels=tuple(levels), damp=damp,
+        names=[mod.name])
     base = float(module_drop_error(W, h_raw))
     return _finish_module_db(mod, np.asarray(levels), snaps16, errs,
                              base, orders)
@@ -173,7 +196,8 @@ def build_database(cfg, params, hessians: Dict[str, torch.Tensor], *,
                                         for m in chunk]).to(dev)
                     snaps16, errs, orders = _prune_healed(
                         prune_structured_batched, Ws, Hraw, group_size=gs,
-                        n_remove=max(levels), levels=levels, damp=damp)
+                        n_remove=max(levels), levels=levels, damp=damp,
+                        names=[m.name for m in chunk])
                     # sync: one transfer per chunk
                     bases = module_drop_errors(Ws, Hraw).double().cpu().numpy()
                     lv = np.asarray(levels)
@@ -224,10 +248,6 @@ class SnapshotCache:
     def covers(self, assignment: Dict[str, int]) -> bool:
         return all(n in assignment for e in self._groups for n in e["names"])
 
-    def stitched_leaves(self) -> List[Tuple[str, str]]:
-        """(group, leaf) of every params leaf a stitch replaces."""
-        return sorted({UNITS[e["kind"]].param_path for e in self._groups})
-
     def _level_index(self, e, assignments: Sequence[Dict[str, int]]):
         lvl = np.asarray([[a[n] for n in e["names"]] for a in assignments])
         idx = np.searchsorted(e["levels"], lvl)
@@ -248,9 +268,14 @@ class SnapshotCache:
         return new
 
     def apply_batched(self, params, assignments: Sequence[Dict[str, int]]):
-        """Stitch P assignments into one tree whose stitched leaves
-        (``stitched_leaves``) gain a leading (P,) axis; every other leaf
-        is the original tensor."""
+        """Stitch P assignments into one tree whose stitched leaves gain a
+        leading (P,) axis; every other leaf is the original tensor.
+
+        The counterpart of the reference's ``apply_batched``, for a caller
+        that runs all P members in one batched forward. The port's own
+        population scorer (``oneshot.make_batched_eval``) runs one forward
+        per member, so it stitches with ``apply`` and never holds P
+        copies of a leaf."""
         new = copy_tree(params)
         layers = new["layers"]
         P = len(assignments)
@@ -267,14 +292,6 @@ class SnapshotCache:
                 .to(leaf.dtype)
             layers[grp][key] = leaf
         return new
-
-
-def select_member(cache: SnapshotCache, params_batched, p: int):
-    """Member ``p`` of an ``apply_batched`` tree, as a plain params tree."""
-    new = copy_tree(params_batched)
-    for grp, key in cache.stitched_leaves():
-        new["layers"][grp][key] = new["layers"][grp][key][p]
-    return new
 
 
 def apply_assignment(cfg, params, db: Dict[str, ModuleDB],

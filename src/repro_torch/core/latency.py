@@ -125,9 +125,10 @@ def _ffn_timing_module(cfg, tokens: int, f_live: int, gen, dt, dev):
     return ffn_mod, (x, w1, w2)
 
 
-def _time_fn(fn, *args, reps: int, dev: torch.device) -> float:
-    """Seconds per call after one warm-up call."""
-    fn(*args)
+def _time_fn(fn, *args, reps: int, warmup: int, dev: torch.device) -> float:
+    """Seconds per call after ``warmup`` untimed calls."""
+    for _ in range(warmup):
+        fn(*args)
     if dev.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -144,9 +145,10 @@ def _time_fn(fn, *args, reps: int, dev: torch.device) -> float:
 
 
 def build_measured_table(cfg, env: cm.InferenceEnv, dev: torch.device, *,
-                         grid_subsample: int = 4, reps: int = 5
-                         ) -> LatencyTable:
-    """Measure module runtimes on ``dev``; the level grid is subsampled
+                         grid_subsample: int = 4, reps: int = 5,
+                         warmup: int = 1) -> LatencyTable:
+    """Measure module runtimes on ``dev``, each the mean of ``reps`` calls
+    after ``warmup`` untimed ones; the level grid is subsampled
     (interpolation fills the gaps)."""
     tab = LatencyTable(env=env)
     dt = compute_dtype(cfg)
@@ -169,13 +171,15 @@ def build_measured_table(cfg, env: cm.InferenceEnv, dev: torch.device, *,
                 else:
                     fn, args = _ffn_timing_module(cfg, spec["tokens"],
                                                   spec["f_live"], gen, dt, dev)
-                ts.append(_time_fn(fn, *args, reps=reps, dev=dev))
+                ts.append(_time_fn(fn, *args, reps=reps, warmup=warmup,
+                                      dev=dev))
             tab.grids[kind] = grid
             tab.times[kind] = np.asarray(ts)
         # base: the logits head
         x = torch.randn((env.tokens, cfg.d_model), generator=gen).to(dev, dt)
         wv = torch.zeros((cfg.d_model, cfg.vocab_size), dtype=dt, device=dev)
-        tab.base = _time_fn(torch.matmul, x, wv, reps=reps, dev=dev)
+        tab.base = _time_fn(torch.matmul, x, wv, reps=reps, warmup=warmup,
+                            dev=dev)
     return tab
 
 

@@ -5,13 +5,14 @@ stitched models.
 A single run produces the whole family of compressed models, one per
 speedup target, each with a runtime guarantee in the given environment.
 The family is searched in one pass (`spdy.search_family`); each round's
-unique candidates are stitched on the device (`SnapshotCache.
-apply_batched`) and scored by a loop of calibration-loss forwards, with
-one host sync per round.
+unique candidates are stitched on the device (`SnapshotCache.apply`) and
+scored by a loop of calibration-loss forwards, with one host sync per
+round.
 """
 from __future__ import annotations
 
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -23,7 +24,7 @@ from ..models.transformer import tree_to
 from ..runtime.costmodel import InferenceEnv
 from ..runtime.device import DeviceLike, resolve_device, synchronize
 from .database import (ModuleDB, SnapshotCache, apply_assignment,
-                       build_database, select_member)
+                       build_database)
 from .hessian import collect_hessians
 from .latency import LatencyTable, build_table
 from .spdy import SearchResult, search_family
@@ -72,21 +73,16 @@ def calib_loss_fn(cfg, batches, device: DeviceLike = None):
 
 
 def make_batched_eval(cfg, params, cache: SnapshotCache, batches,
-                      chunk: int = 32, device: DeviceLike = None
+                      device: DeviceLike = None
                       ) -> Callable[[List[Dict[str, int]]], np.ndarray]:
-    """Population scorer for `spdy.search_family`: stitch assignments on
-    the device ``chunk`` at a time (`apply_batched`) and score each
-    member with a calibration-loss forward; the losses stay on the
-    device until the one host sync at the end of the call."""
+    """Population scorer for `spdy.search_family`: stitch each assignment
+    on the device (`SnapshotCache.apply`) and score it with a
+    calibration-loss forward; the losses stay on the device until the one
+    host sync at the end of the call."""
     loss = calib_loss_fn(cfg, batches, device)
 
     def eval_batched(assignments: List[Dict[str, int]]) -> np.ndarray:
-        vals = []
-        for lo in range(0, len(assignments), chunk):
-            part = assignments[lo:lo + chunk]
-            pb = cache.apply_batched(params, part)
-            vals.extend(loss.tensor(select_member(cache, pb, p))
-                        for p in range(len(part)))
+        vals = [loss.tensor(cache.apply(params, a)) for a in assignments]
         # sync: the one host pull per SPDY round
         return torch.stack(vals).double().cpu().numpy()
 
@@ -112,51 +108,54 @@ def oneshot_prune(cfg, params, calib_batches: List[dict],
     params = tree_to(params, dev)
     targets = list(targets)
     stages: Dict[str, float] = {}
-    t0 = time.perf_counter()
 
-    def lap(name):
-        nonlocal t0
-        synchronize(dev)
-        t1 = time.perf_counter()
-        stages[name] = t1 - t0
-        t0 = t1
+    @contextmanager
+    def stage(name):
+        """Time a stage to its last device op; a profiler sees it as the
+        range ``oneshot_prune.<name>``."""
+        t0 = time.perf_counter()
+        with torch.profiler.record_function(f"oneshot_prune.{name}"):
+            yield
+            synchronize(dev)
+        stages[name] = time.perf_counter() - t0
 
-    hessians = collect_hessians(cfg, params, calib_batches, device=dev)
-    lap("calibration")
-    table = build_table(cfg, env, backend=latency_backend, device=dev,
-                        **(latency_kw or {}))
-    lap("latency_table")
-    db = build_database(cfg, params, hessians, damp=damp, verbose=verbose,
-                        device=dev)
-    del hessians
-    lap("database")
-    cache = SnapshotCache(cfg, db, device=dev) if eval_with_loss else None
-    mods = registry(cfg)
-    dense_rt = table.dense_runtime(mods)
-    evals = eval_batches or calib_batches[:1]
-    loss_eval = calib_loss_fn(cfg, evals, device=dev)
-    dense_loss = loss_eval(params)
-    eval_batched = (make_batched_eval(cfg, params, cache, evals, device=dev)
-                    if eval_with_loss else None)
-    results = search_family(db, table, targets, steps=search_steps,
-                            pop=search_pop, eval_batched=eval_batched,
-                            seed=seed, verbose=verbose)
-    lap("search")
+    with stage("calibration"):
+        hessians = collect_hessians(cfg, params, calib_batches, device=dev)
+    with stage("latency_table"):
+        table = build_table(cfg, env, backend=latency_backend, device=dev,
+                            **(latency_kw or {}))
+    with stage("database"):
+        db = build_database(cfg, params, hessians, damp=damp,
+                            verbose=verbose, device=dev)
+        del hessians
+    with stage("search"):
+        cache = SnapshotCache(cfg, db, device=dev) if eval_with_loss else None
+        mods = registry(cfg)
+        dense_rt = table.dense_runtime(mods)
+        evals = eval_batches or calib_batches[:1]
+        loss_eval = calib_loss_fn(cfg, evals, device=dev)
+        dense_loss = loss_eval(params)
+        eval_batched = (make_batched_eval(cfg, params, cache, evals,
+                                          device=dev)
+                        if eval_with_loss else None)
+        results = search_family(db, table, targets, steps=search_steps,
+                                pop=search_pop, eval_batched=eval_batched,
+                                seed=seed, verbose=verbose)
 
     variants: Dict[float, PrunedVariant] = {}
-    for t in targets:
-        res = results[t]
-        pruned = apply_assignment(cfg, params, db, res.assignment,
-                                  cache=cache)
-        variants[t] = PrunedVariant(
-            target_speedup=t, params=pruned, assignment=res.assignment,
-            runtime=res.runtime, speedup=res.speedup,
-            calib_loss=loss_eval(pruned), search=res)
-        if verbose:
-            print(f"target {t}x -> achieved {res.speedup:.2f}x, "
-                  f"loss {variants[t].calib_loss:.4f} "
-                  f"(dense {dense_loss:.4f})")
-    lap("stitch")
+    with stage("stitch"):
+        for t in targets:
+            res = results[t]
+            pruned = apply_assignment(cfg, params, db, res.assignment,
+                                      cache=cache)
+            variants[t] = PrunedVariant(
+                target_speedup=t, params=pruned, assignment=res.assignment,
+                runtime=res.runtime, speedup=res.speedup,
+                calib_loss=loss_eval(pruned), search=res)
+            if verbose:
+                print(f"target {t}x -> achieved {res.speedup:.2f}x, "
+                      f"loss {variants[t].calib_loss:.4f} "
+                      f"(dense {dense_loss:.4f})")
     return OneShotResult(variants=variants, table=table, db=db,
                          dense_runtime=dense_rt, dense_loss=dense_loss,
                          stage_seconds=stages)

@@ -4,22 +4,26 @@
 // (hessian_accum_kernel, bodies _xtx_kernel / _xtx_acc_kernel).
 //
 // X is (N, D) row-major, fp32 or bf16; out and acc are (D, D) fp32.
-// Each block owns one 64x64 output tile. The TPU kernel carried its
-// accumulator across a sequential N grid axis; blocks on the card run in
-// no order, so here the N reduction is a loop inside the block: it stages
-// (32 x 64) strips of the two column panels of X in shared memory and
-// accumulates with fp32 FMA in registers (4x4 outputs per thread, strided
-// by 16 so the shared-memory reads of a warp are broadcasts or
-// conflict-free). Given acc, the accumulators start from the acc tile, so
-// acc + X^T X is one pass. Ragged edges of N and D are padded with zeros
-// on load and masked on store.
+// X^T X is symmetric, so only the 64x64 output tiles on or above the
+// diagonal are computed, one per block: tile (ti, tj) with ti <= tj is
+// written to (ti, tj) and, off the diagonal, mirrored to (tj, ti) through
+// shared memory so both stores stay coalesced. acc need not be symmetric:
+// each of the two stores adds its own acc entry, so acc + X^T X is one
+// pass. The TPU kernel carried its accumulator across a sequential N grid
+// axis; blocks on the card run in no order, so here the N reduction is a
+// loop inside the block: it stages (32 x 64) strips of the two column
+// panels of X in shared memory and accumulates with fp32 FMA in registers
+// (4x4 outputs per thread, strided by 16 so the shared-memory reads of a
+// warp are broadcasts or conflict-free). Ragged edges of N and D are
+// padded with zeros on load and masked on store.
 //
-// Bound: 2*N*D^2 FMA operations against (N*D + 2*D^2) * 4 bytes, so at
-// the main path's N = 4096, D = 3072 it is compute-bound on fp32 FMA
-// (about 77 GFLOP per call). It deliberately uses no tensor cores: TF32
-// would keep ~3 decimal digits and break the fp32 tolerances the
-// calibration Hessians are held to. The design reaches for the fp32 FMA
-// rate with register tiling; wgmma/TMA pipelining is later work.
+// Bound: the distinct entries need N*D*(D+1)/2 FMA, i.e. N*D*(D+1)
+// operations (about 38.7 GFLOP at the main path's N = 4096, D = 3072),
+// against (N*D + 2*D^2) * 4 bytes, so it is compute-bound on fp32 FMA.
+// It deliberately uses no tensor cores: TF32 would keep ~3 decimal digits
+// and break the fp32 tolerances the calibration Hessians are held to. The
+// design halves the work by symmetry and reaches for the fp32 FMA rate
+// with register tiling; wgmma/TMA pipelining is later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstddef>
@@ -38,22 +42,22 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 xtx_kernel(const T* __restrict__ x, const float* __restrict__ acc,
-           float* __restrict__ out, int n, int d) {
+           float* __restrict__ out, int n, int d, int tiles) {
   __shared__ float xi[BN][BT];
   __shared__ float xj[BN][BT];
+  __shared__ float mirror[BT][BT + 1];  // +1: conflict-free column reads
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int i0 = blockIdx.y * BT, j0 = blockIdx.x * BT;
 
-  float c[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int i = i0 + ty + 16 * a, j = j0 + tx + 16 * b;
-      c[a][b] = (acc != nullptr && i < d && j < d)
-                    ? acc[(size_t)i * d + j] : 0.0f;
-    }
+  // block -> upper-triangle tile (ti, tj), row by row
+  int ti = 0, rem = blockIdx.x;
+  while (rem >= tiles - ti) {
+    rem -= tiles - ti;
+    ++ti;
+  }
+  const int tj = ti + rem;
+  const int i0 = ti * BT, j0 = tj * BT;
 
+  float c[4][4] = {};
   for (int n0 = 0; n0 < n; n0 += BN) {
     for (int e = threadIdx.x; e < BN * BT; e += THREADS) {
       const int r = e / BT, col = e % BT;
@@ -78,22 +82,41 @@ xtx_kernel(const T* __restrict__ x, const float* __restrict__ acc,
     __syncthreads();
   }
 
+  // tile (ti, tj): row i, column j
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
-      const int i = i0 + ty + 16 * a, j = j0 + tx + 16 * b;
-      if (i < d && j < d) out[(size_t)i * d + j] = c[a][b];
+      const int li = ty + 16 * a, lj = tx + 16 * b;
+      const int i = i0 + li, j = j0 + lj;
+      if (i < d && j < d) {
+        const size_t o = (size_t)i * d + j;
+        out[o] = acc != nullptr ? acc[o] + c[a][b] : c[a][b];
+      }
+      mirror[li][lj] = c[a][b];
     }
+  if (ti == tj) return;  // a diagonal tile is its own mirror
+  __syncthreads();
+
+  // mirrored tile (tj, ti): row j, column i, consecutive threads along i
+  for (int e = threadIdx.x; e < BT * BT; e += THREADS) {
+    const int lj = e / BT, li = e % BT;
+    const int j = j0 + lj, i = i0 + li;
+    if (i < d && j < d) {
+      const size_t o = (size_t)j * d + i;
+      const float v = mirror[li][lj];
+      out[o] = acc != nullptr ? acc[o] + v : v;
+    }
+  }
 }
 
 template <typename T>
 int launch(const void* x, const float* acc, float* out, int n, int d,
            void* stream) {
   const int tiles = (d + BT - 1) / BT;
-  dim3 grid(tiles, tiles);
-  xtx_kernel<T><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), acc, out, n, d);
+  const int blocks = tiles * (tiles + 1) / 2;
+  xtx_kernel<T><<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), acc, out, n, d, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -54,11 +54,25 @@ from repro_torch.data import calibration_batches
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.runtime.costmodel import HardwareSpec, InferenceEnv
 
+# the JAX package's execution options, which the port's config does not carry
+JAX_EXECUTION = ("attn_impl", "flash_block_q", "flash_block_k", "remat",
+                 "scan_layers")
+
+
+def port_cfg(ref_cfg):
+    """The port's config of a reference config. The port runs dense
+    attention, which is what the reference's "auto" picks at these
+    lengths."""
+    assert ref_cfg.attn_impl in ("auto", "dense")
+    return ModelConfig(**{k: v for k, v in dataclasses.asdict(ref_cfg).items()
+                          if k not in JAX_EXECUTION})
+
+
 # the quickstart's gpt2-tiny (examples/quickstart.py), two layers, fp32
 REF_TINY = REF_GPT2.replace(name="gpt2-tiny", num_layers=2, d_model=96,
                             d_ff=384, num_heads=6, num_kv_heads=6,
                             head_dim=16, vocab_size=384, dtype="float32")
-CFG = ModelConfig(**dataclasses.asdict(REF_TINY))
+CFG = port_cfg(REF_TINY)
 # the reference's TPU_V5E fields in a port HardwareSpec
 HW = HardwareSpec(**dataclasses.asdict(TPU_V5E))
 ENV_KW = dict(batch=16, seq=128, mode="prefill")
@@ -242,20 +256,63 @@ def test_snapshot_cache_matches_host_stitch(ref, port_params, port_db):
     rng = np.random.default_rng(0)
     assigns = [{n: int(rng.choice(m.levels)) for n, m in port_db.items()}
                for _ in range(3)]
-    batched = cache.apply_batched(port_params, assigns)
-    for p, a in enumerate(assigns):
+    for a in assigns:
         want = database.apply_assignment(CFG, port_params, port_db, a)
         got = cache.apply(port_params, a)
-        member = database.select_member(cache, batched, p)
         for grp, leaf in (("attn", "wo"), ("ffn", "wd")):
-            w = want["layers"][grp][leaf]
-            assert torch.equal(got["layers"][grp][leaf], w)
-            assert torch.equal(member["layers"][grp][leaf], w)
+            assert torch.equal(got["layers"][grp][leaf],
+                               want["layers"][grp][leaf])
     # the given tree is never written
     assert torch.equal(port_params["layers"]["ffn"]["wd"],
                        params_from_numpy(jax.tree.map(
                            np.asarray, ref["params"]),
                            device="cpu")["layers"]["ffn"]["wd"])
+
+
+def test_apply_batched_matches_reference(ref, port_params):
+    """Stitched from the reference's own database, the port's stacked
+    leaves equal the reference's, member by member."""
+    rng = np.random.default_rng(1)
+    assigns = [{n: int(rng.choice(m.levels)) for n, m in ref["db"].items()}
+               for _ in range(3)]
+    got = database.SnapshotCache(CFG, _port_db(ref["db"]), device="cpu") \
+        .apply_batched(port_params, assigns)
+    want = ref_database.SnapshotCache(REF_TINY, ref["db"]) \
+        .apply_batched(ref["params"], assigns)
+    for grp, leaf in (("attn", "wo"), ("ffn", "wd")):
+        g = got["layers"][grp][leaf]
+        assert g.shape[0] == len(assigns)
+        np.testing.assert_array_equal(g.numpy(),
+                                      np.asarray(want["layers"][grp][leaf]))
+
+
+@pytest.mark.parametrize("name", ["L0.attn", "L1.ffn"])
+def test_algorithm1_from_the_reference_inverse_keeps_its_order(
+        ref, port_params, name):
+    """Started from the reference's own fp32 inverse, the port's
+    Algorithm 1 removes structures in the reference's order, with
+    snapshots and errors at the database tolerances: where the two
+    packages' orders could part, it is the starting inverse, not the
+    steps. L1.ffn (cond ~2e4) is where an fp32 inverse taken by the port
+    itself swapped two near-tied removals."""
+    from repro.core import obs as ref_obs
+    mod = next(m for m in registry(CFG) if m.name == name)
+    lv = tuple(level_grid(mod))
+    W = database.get_matrix(CFG, port_params, mod)
+    h = np.asarray(ref["hess"][name])
+    hinv = jax.numpy.linalg.inv(ref_obs.build_hessian(jax.numpy.asarray(h)))
+    want = ref_obs.prune_structured(jax.numpy.asarray(W.numpy()), hinv,
+                                    group_size=mod.group_size,
+                                    n_remove=max(lv), levels=lv)
+    got = prune_structured(W, torch.from_numpy(np.array(hinv)),
+                           group_size=mod.group_size, n_remove=max(lv),
+                           levels=lv)
+    np.testing.assert_array_equal(got.order.numpy(), np.asarray(want.order))
+    np.testing.assert_allclose(got.snapshots.float().numpy(),
+                               np.asarray(want.snapshots, np.float32),
+                               atol=2e-3, rtol=2e-3)
+    np.testing.assert_allclose(got.errors.numpy(), np.asarray(want.errors),
+                               rtol=1e-3, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -365,3 +422,25 @@ def test_damping_ladder_converges_near_singular(n_groups, gs, seed):
                 and torch.isfinite(res.snapshots.float()).all()):
             return
     raise AssertionError("no damping rung produced a finite prune")
+
+
+def test_damping_ladder_names_the_module_and_level_that_failed(capsys):
+    """A failed rung names the failing module of a stack and the level
+    its prune went non-finite at; the healthy module is not named."""
+    rng = np.random.default_rng(123)
+    n_groups, gs = 5, 3
+    d_in = n_groups * gs
+    v = rng.standard_normal((1, d_in))
+    x = rng.standard_normal((64, d_in))
+    xtx = torch.from_numpy(np.stack([v.T @ v, x.T @ x]).astype(np.float32))
+    W = torch.from_numpy(rng.standard_normal((2, d_in, 4)).astype(np.float32))
+    lv = tuple(range(n_groups + 1))
+    snaps, errs, _ = database._prune_healed(
+        prune_structured_batched, W, xtx, group_size=gs, n_remove=n_groups,
+        levels=lv, damp=1e-10, names=["rank1", "healthy"])
+    out = capsys.readouterr().out
+    assert ("non-finite prune at damp=1e-10 in 1 of 2 module(s): rank1 "
+            "error from level 1 (removal 1)") in out
+    assert "healthy" not in out
+    assert "healed non-finite prune" in out
+    assert np.isfinite(errs).all() and np.isfinite(snaps).all()

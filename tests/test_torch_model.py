@@ -36,8 +36,18 @@ REF_BERT = REF_TINY.replace(name="bert-tiny", causal=False)
 CASES = {"gpt2": REF_TINY, "llama": REF_LLAMA, "bert": REF_BERT}
 
 
+# the JAX package's execution options, which the port's config does not carry
+JAX_EXECUTION = ("attn_impl", "flash_block_q", "flash_block_k", "remat",
+                 "scan_layers")
+
+
 def port_cfg(ref_cfg):
-    return ModelConfig(**dataclasses.asdict(ref_cfg))
+    """The port's config of a reference config. The port runs dense
+    attention, which is what the reference's "auto" picks at these
+    lengths."""
+    assert ref_cfg.attn_impl in ("auto", "dense")
+    return ModelConfig(**{k: v for k, v in dataclasses.asdict(ref_cfg).items()
+                          if k not in JAX_EXECUTION})
 
 
 def bridge(ref_params):
