@@ -8,11 +8,13 @@ Phases (any failure exits non-zero and prints no result):
 1. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together);
 2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it (plus a ragged case, a ``d_live`` case
-   and bf16 input), and time kernel, plain version and, where one exists,
-   the single PyTorch call that computes the same function;
-3. check the slice on a small model: the card's run (kernels) against the
-   CPU run (plain versions) on the same weights and Hessians;
+   shapes the main paths give it (plus ragged, ``d_live``, bf16, GQA,
+   window and ``q_offset`` cases), and time kernel, plain version and,
+   where one exists, the single PyTorch call that computes the same
+   function;
+3. check the slices on small models: the card's run (kernels) against the
+   CPU run (plain versions) on the same weights and Hessians, and a
+   2-layer model's prefill logits and served tokens;
 4. the main path: ``oneshot_prune`` on full-width GPT-2 small (12 layers,
    d_model 768, 12 heads, d_ff 3072, vocab 50257) with seeded weights,
    numpy calibration batches, a latency table measured on the card and
@@ -21,7 +23,19 @@ Phases (any failure exits non-zero and prints no result):
    is searched again on the same database and table by the analytic
    prior sum, which must give one member per target with rising
    speedups (on random weights the loss-scored family can collapse to
-   one member), and the table is rebuilt twice to show its spread.
+   one member), and the table is rebuilt twice to show its spread;
+5. serving at full width: the prior-scored family of phase 4 (three
+   shrunk GPT-2 small members and the dense model, bf16, ``max_len``
+   1024) stood up by a ``FamilyServer`` from the stock config (the
+   engines prefill through the flash-attention kernel whatever
+   ``attn_impl`` says); shrink and stitched-model checks, then every
+   member serves one seeded stream (256 requests, 8 slots, prompts of
+   128-768 tokens, 16-64 generated tokens, 50 req/s) and the routed
+   stream runs through ``FamilyServer.run``, with the launch counts
+   zeroed just before and read just after; engine tokens against
+   per-request decoding, KV bytes against the shrunk structures; then
+   the serving CLI (``repro_torch.launch.serve --arch gpt2-small``) as a
+   user runs it, which must launch the flash kernel too.
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 product on the
 card is a full fp32 product and the fp32 tolerances below hold.
@@ -41,13 +55,17 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# H100 SXM data sheet (dense, 700 W): fp32 outside the tensor cores, and
-# device memory bandwidth
+# H100 SXM data sheet (dense, 700 W): fp32 outside the tensor cores, bf16
+# on the tensor cores, and device memory bandwidth
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 HBM_BYTES_PER_S = 3.35e12
 # the main path's measured latency table: each module level the mean of
 # 50 calls after 5 untimed ones
 LATENCY_KW = {"reps": 50, "warmup": 5}
+# kernels the one-shot path (phase 4) and the serving path (phase 5) run
+ONESHOT_KERNELS = ("hessian_accum", "obs_downdate")
+SERVING_KERNELS = ("flash_attention",)
 
 
 def fail(msg: str) -> int:
@@ -190,7 +208,89 @@ def check_kernels(torch, kernels):
         "replaces": "src/repro/kernels/obs_downdate.py:42",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b, "bound_by": by, "library_ms": None}
+    records["flash_attention"] = check_flash(torch, kernels, g)
     return records
+
+
+# b, sq, sk, hq, hkv, d, causal, window, q_offset (None: sk - sq): the
+# reference's FLASH_CASES (tests/test_kernels.py), then GPT-2 small's
+# serving prefills (the last is the timed one's shape), and GQA with a
+# window and queries inside the keys
+FLASH_CASES = [(2, 128, 128, 4, 4, 64, True, 0, None),
+               (1, 256, 256, 8, 2, 64, True, 0, None),
+               (2, 128, 128, 4, 1, 128, True, 64, None),
+               (1, 96, 224, 2, 2, 64, True, 0, None),
+               (1, 128, 128, 4, 4, 64, False, 0, None),
+               (2, 130, 130, 2, 2, 32, True, 0, None)]
+FLASH_SERVING = [(1, s, s, 12, 12, 64, True, 0, None)
+                 for s in (128, 512, 1024)]
+FLASH_GQA = (2, 100, 300, 8, 2, 64, True, 96, 150)
+
+
+def attended_pairs(sq, sk, causal, window, q_offset):
+    """(query, key) pairs the masks keep: the work the function needs."""
+    import numpy as np
+    qpos = q_offset + np.arange(sq)[:, None]
+    kpos = np.arange(sk)[None, :]
+    keep = np.ones((sq, sk), bool)
+    if causal:
+        keep &= kpos <= qpos
+    if window:
+        keep &= kpos > qpos - window
+    return int(keep.sum())
+
+
+def check_flash(torch, kernels, g):
+    """Phase 2, flash attention: the reference's cases in fp32 (tolerance
+    2e-5) and bf16 (2e-2), the serving shapes and a GQA + window +
+    q_offset case in bf16; timed at GPT-2 small's longest prefill."""
+    from repro_torch.kernels import flash_attention_plain
+    dev = torch.device("cuda")
+    cases = ([(c, torch.float32) for c in FLASH_CASES]
+             + [(c, torch.bfloat16) for c in FLASH_CASES + FLASH_SERVING
+                + [FLASH_GQA]])
+    for case, dt in cases:
+        b, sq, sk, hq, hkv, d, causal, window, q_off = case
+        q, k, v = (torch.randn(shape, device=dev, generator=g).to(dt)
+                   for shape in ((b, sq, hq, d), (b, sk, hkv, d),
+                                 (b, sk, hkv, d)))
+        kw = {"causal": causal, "window": window, "q_offset": q_off}
+        got = kernels.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(q, k, v, **kw)
+        tol = 2e-5 if dt == torch.float32 else 2e-2
+        err = float((got.float() - want.float()).abs().max())
+        ok = bool(torch.allclose(got.float(), want.float(), atol=tol,
+                                 rtol=tol))
+        print(f"flash_attention {case} {str(dt)[6:]}: max_abs_err={err:.3e} "
+              f"(atol {tol:g} + rtol {tol:g}*|plain|) "
+              f"{'ok' if ok else 'MISMATCH'}")
+        check(ok, f"flash_attention disagrees at {case} {dt}")
+        if case == FLASH_SERVING[-1]:
+            timed = (q, k, v, err)
+    # the timed case: the longest serving prefill, (1, 1024, 12, 12, 64)
+    q, k, v, err = timed
+    b, sq, sk, hq, hkv, d, causal, window, q_off = FLASH_SERVING[-1]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = time_ms(lambda: kernels.flash_attention(q, k, v, causal=True))
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=True))
+    lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+    pairs = attended_pairs(sq, sk, causal, window, sk - sq)
+    ops = 4.0 * b * hq * d * pairs
+    nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + q.numel())
+    bnd, by = bound_ms(nbytes, ops, PEAK_BF16)
+    print(f"flash_attention {(b, sq, sk, hq, hkv, d)} bf16 causal: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {bnd:.4f} ms "
+          f"({by}; {ops / 1e9:.3f} GFLOP over {PEAK_BF16 / 1e12:.0f} "
+          f"TFLOP/s, {nbytes / 1e6:.2f} MB over "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {ops / ms / 1e9:.1f} TFLOP/s")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:76",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms}
 
 
 def check_small_slice(torch):
@@ -267,6 +367,43 @@ def check_small_slice(torch):
         check(abs(lg - lc) <= 1e-3 * abs(lc), f"{t}x member losses differ")
 
 
+def check_small_serving(torch):
+    """Phase 3, serving: a 2-layer GPT-2 with head dim 64 in fp32 and flash
+    prefill, on the card (the flash kernel) and on the CPU (its plain
+    version): prefill logits within 1e-4 of their scale, and the engine's
+    greedy tokens equal for a few requests."""
+    from repro_torch.configs import GPT2_SMALL
+    from repro_torch.models import model_init, serve_prefill
+    from repro_torch.models.transformer import tree_to
+    from repro_torch.serve import (DenseServeModel, ServeEngine,
+                                   synthetic_requests)
+
+    cfg = GPT2_SMALL.replace(name="gpt2-2l-d64", num_layers=2, d_model=256,
+                             num_heads=4, num_kv_heads=4, d_ff=1024,
+                             vocab_size=512, dtype="float32",
+                             attn_impl="flash_lax")
+    p_cpu = model_init(cfg, torch.Generator().manual_seed(2), device="cpu")
+    p_gpu = tree_to(p_cpu, "cuda")
+    reqs = synthetic_requests(cfg, 4, seed=4, rate=100.0,
+                              prompt_lens=(40, 77, 128), steps_range=(8, 16))
+    prompt = torch.from_numpy(reqs[0].tokens[None])
+    lg_cpu, _ = serve_prefill(cfg, p_cpu, {"tokens": prompt}, max_len=160)
+    lg_gpu, _ = serve_prefill(cfg, p_gpu, {"tokens": prompt.cuda()},
+                              max_len=160)
+    err = float((lg_gpu.cpu() - lg_cpu).abs().max())
+    scale = float(lg_cpu.abs().max())
+    print(f"small serving: {cfg.name} prefill logits card vs CPU "
+          f"max_abs_err={err:.3e} (scale {scale:.3e}, tol 1e-4*scale)")
+    check(err <= 1e-4 * scale, "prefill logits disagree between card and CPU")
+    tokens = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        eng = ServeEngine(DenseServeModel(cfg, params, 160), num_slots=2)
+        tokens[dev] = [r.tokens for r in eng.run(reqs).records]
+    print(f"small serving: greedy tokens of {len(reqs)} requests card == "
+          f"CPU: {tokens['cuda'] == tokens['cpu']}")
+    check(tokens["cuda"] == tokens["cpu"], "served tokens differ")
+
+
 def run_main_path(torch, kernels):
     """Phase 4: oneshot_prune on full-width GPT-2 small."""
     from repro_torch.configs import GPT2_SMALL
@@ -322,16 +459,16 @@ def run_main_path(torch, kernels):
                   and bool(torch.isfinite(w).all()),
                   f"{t}x: {leaf} has the wrong shape or non-finite values")
     check(math.isfinite(res.dense_loss), "non-finite dense loss")
-    for name, n in launches.items():
-        check(n > 0, f"{name} never launched on the main path")
+    for name in ONESHOT_KERNELS:
+        check(launches[name] > 0, f"{name} never launched on the main path")
     distinct = len({tuple(sorted(res.variants[t].assignment.items()))
                     for t in targets})
     print(f"loss-scored family: {distinct} distinct member(s) for "
           f"{len(targets)} targets (on seeded random weights pruning can "
           f"lower the calibration loss, so one member may win every target)")
-    check_prior_family(torch, cfg, params, calib, res, targets)
+    fam = check_prior_family(torch, cfg, params, calib, res, targets)
     check_table_spread(cfg, env, res)
-    return launches
+    return launches, params, calib, res.db, fam
 
 
 def check_prior_family(torch, cfg, params, calib, res, targets):
@@ -358,6 +495,7 @@ def check_prior_family(torch, cfg, params, calib, res, targets):
         speedups.append(r.speedup)
     check(all(a < b for a, b in zip(speedups, speedups[1:])),
           f"prior-scored family is degenerate: speedups {speedups}")
+    return fam
 
 
 def check_table_spread(cfg, env, res, rebuilds: int = 2):
@@ -374,6 +512,202 @@ def check_table_spread(cfg, env, res, rebuilds: int = 2):
     print(f"measured table dense runtime over {len(dense)} builds: "
           + ", ".join(f"{v:.4f}" for v in dense)
           + f" ms (spread {(max(dense) - min(dense)) / min(dense):.2%})")
+
+
+# phase 5: GPT-2 small served with flash prefill; the stream's prompts
+# pad to the 128/256/512/1024 buckets. 256 requests arrive in about 5 s,
+# faster than 8 slots serve them: tokens/s is the saturated throughput
+SERVE = {"max_len": 1024, "slots": 8, "requests": 256}
+STREAM = {"seed": 0, "rate": 50.0, "prompt_lens": (128, 256, 512, 768),
+          "steps_range": (16, 64)}
+# shrunk vs stitched logits, bf16 through 12 layers in both (different
+# GEMM shapes round differently): max abs error within 5e-2 of the scale
+STITCHED_TOL = 5e-2
+
+
+def _alone(torch, model, req, max_len):
+    """A request's greedy tokens decoded by itself (batch 1, its exact
+    prompt length): ``generate`` for the dense model, the pruned
+    runtime's prefill and decode loop for a shrunk member."""
+    from repro_torch.models import generate
+    from repro_torch.models.pruned import decode_step_pruned, prefill_pruned
+    from repro_torch.serve import DenseServeModel
+    prompt = torch.from_numpy(req.tokens[None]).cuda()
+    if isinstance(model, DenseServeModel):
+        return generate(model.cfg, model.params, prompt, req.steps,
+                        max_len=max_len)[0].tolist()
+    logits, cache = prefill_pruned(model.pm, prompt, max_len)
+    toks = [int(logits[0, -1].argmax())]
+    for _ in range(req.steps - 1):
+        logits, cache = decode_step_pruned(
+            model.pm, cache, torch.tensor([[toks[-1]]], device="cuda"))
+        toks.append(int(logits[0, -1].argmax()))
+    return toks
+
+
+def serve_family(torch, kernels, params, calib, db, fam):
+    """Phase 5: the prior-scored family shrunk and served at full width."""
+    from repro_torch.configs import GPT2_SMALL
+    from repro_torch.core.shrink import shrink, shrink_from_stitched
+    from repro_torch.models import forward
+    from repro_torch.models.pruned import forward_pruned, kv_cache_bytes
+    from repro_torch.serve import (DENSE_TARGET, DenseServeModel,
+                                   FamilyServer, PrunedServeModel,
+                                   ServeEngine, synthetic_requests)
+
+    cfg = GPT2_SMALL
+    assignments = {t: r.assignment for t, r in fam.items()}
+    t0 = time.perf_counter()
+    server = FamilyServer(cfg, params, db, assignments,
+                          max_len=SERVE["max_len"], num_slots=SERVE["slots"])
+    torch.cuda.synchronize()
+    print(f"serving: {cfg.name} attn_impl={cfg.attn_impl} (engines run "
+          f"{server.members[DENSE_TARGET].model.cfg.attn_impl}) "
+          f"dtype={cfg.dtype}, FamilyServer of {sorted(server.members)} "
+          f"stood up in {time.perf_counter() - t0:.3f} s ({SERVE})")
+
+    # shrink_from_stitched against shrink on one member: bit-equal leaves
+    t_chk = max(assignments)
+    a = assignments[t_chk]
+    dev_pm = shrink_from_stitched(cfg, server.snapshots.apply(params, a),
+                                  db, a)
+    host_pm = shrink(cfg, params, db, a, device="cuda")
+    hl, dl = (_leaves([l.params for l in pm.layers] + [pm.globals_])
+              for pm in (host_pm, dev_pm))
+    same = len(hl) == len(dl) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(hl, dl))
+    print(f"serving: {t_chk}x shrink_from_stitched == shrink: {len(hl)} "
+          f"leaves bit-equal: {same}")
+    check(same and [l.kv_groups for l in host_pm.layers]
+          == [l.kv_groups for l in dev_pm.layers],
+          "shrink_from_stitched differs from shrink")
+    del host_pm, dev_pm
+
+    # each member's shrunk logits against its stitched dense model's
+    tokens = calib[0]["tokens"].cuda()
+    with torch.no_grad():
+        for t, eng in sorted(server.members.items()):
+            if t == DENSE_TARGET:
+                continue
+            stitched = server.snapshots.apply(params, assignments[t])
+            want = forward(eng.model.cfg, stitched, tokens)["logits"]
+            got = forward_pruned(eng.model.pm, tokens)
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            finite = bool(torch.isfinite(got).all()) \
+                and bool(torch.isfinite(want).all())
+            print(f"serving: {t}x shrunk vs stitched logits on "
+                  f"{tuple(tokens.shape)} calibration tokens: max_abs_err="
+                  f"{err:.4e} (scale {scale:.4e}, tol {STITCHED_TOL:g}*scale),"
+                  f" finite {finite}")
+            check(finite and err <= STITCHED_TOL * scale,
+                  f"{t}x: shrunk logits disagree with the stitched model")
+            del stitched, want, got
+
+    t0 = time.perf_counter()
+    server.warmup(STREAM["prompt_lens"])
+    torch.cuda.synchronize()
+    print(f"serving: warm-up {time.perf_counter() - t0:.3f} s")
+
+    reqs = synthetic_requests(cfg, SERVE["requests"], **STREAM)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    reports = {t: eng.run(reqs) for t, eng in sorted(server.members.items())}
+    routed = server.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    print(f"serving main path: {len(reqs)} requests through each of "
+          f"{len(reports)} members, then routed, in {wall:.3f} s; launches "
+          f"{launches}")
+    for name in SERVING_KERNELS:
+        check(launches[name] > 0, f"{name} never launched while serving")
+
+    dh, L = cfg.resolved_head_dim, cfg.num_layers
+    for t, rep in sorted(reports.items()):
+        eng = server.members[t]
+        m = rep.as_dict()
+        if t == DENSE_TARGET:
+            n_params = sum(x.numel() for x in _leaves(params))
+            want_kv = 2 * SERVE["slots"] * SERVE["max_len"] * L \
+                * cfg.num_kv_heads * dh * 2
+        else:
+            n_params = eng.model.pm.num_params()
+            want_kv = kv_cache_bytes(eng.model.pm, SERVE["slots"],
+                                     SERVE["max_len"])
+        print(f"  member {t}x: params {n_params}, KV bytes "
+              f"{m['kv_cache_bytes']}, prefill {m['prefill_ms_mean']:.4f} ms "
+              f"(mean), decode {m['decode_ms_per_token_mean']:.4f} ms/token, "
+              f"{m['tokens_per_s']:.2f} tokens/s, p50 {m['p50_ms']:.3f} ms, "
+              f"p99 {m['p99_ms']:.3f} ms, {m['total_tokens']} tokens in "
+              f"{rep.steps} steps, busy {m['wall_s']:.4f} s")
+        check(m["kv_cache_bytes"] == want_kv,
+              f"{t}x: KV bytes {m['kv_cache_bytes']} != {want_kv}")
+    for t, rep in sorted(routed.items()):
+        m = rep.as_dict()
+        print(f"  routed to {t}x: {m['requests']} requests, prefill "
+              f"{m['prefill_ms_mean']:.4f} ms, decode "
+              f"{m['decode_ms_per_token_mean']:.4f} ms/token, "
+              f"{m['tokens_per_s']:.2f} tokens/s, p50 {m['p50_ms']:.3f} ms, "
+              f"p99 {m['p99_ms']:.3f} ms")
+        check(all(server.route(r.latency_class) == t for r in rep.records),
+              f"routing sent a request to the wrong member {t}x")
+
+    # engine tokens against per-request decoding, two requests per member.
+    # As served (bf16), batch 8 and batch 1 GEMMs round differently, so a
+    # near-tie may flip a greedy token: reported. In fp32 (TF32 off) the
+    # engine must equal per-request decoding token for token.
+    pick = reqs[:2]
+    cfg32 = cfg.replace(dtype="float32")
+    for t, eng in sorted(server.members.items()):
+        bf16_same = [reports[t].records[i].tokens
+                     == _alone(torch, eng.model, r, SERVE["max_len"])
+                     for i, r in enumerate(pick)]
+        if t == DENSE_TARGET:
+            model32 = DenseServeModel(cfg32, params, SERVE["max_len"])
+        else:
+            a = assignments[t]
+            model32 = PrunedServeModel(shrink_from_stitched(
+                cfg32, server.snapshots.apply(params, a), db, a),
+                SERVE["max_len"])
+        eng32 = ServeEngine(model32, SERVE["slots"])
+        served32 = [r.tokens for r in eng32.run(pick).records]
+        alone32 = [_alone(torch, model32, r, SERVE["max_len"]) for r in pick]
+        print(f"  member {t}x: engine == per-request decoding for requests "
+              f"{[r.rid for r in pick]} (prompts "
+              f"{[r.prompt_len for r in pick]}, {[r.steps for r in pick]} "
+              f"tokens): fp32 {served32 == alone32}, bf16 as served "
+              f"{bf16_same}")
+        check(served32 == alone32,
+              f"{t}x: engine tokens differ from per-request decoding")
+        del model32, eng32
+    return launches
+
+
+def serve_cli(torch, kernels):
+    """Phase 5, the CLI as a user runs it (``python -m
+    repro_torch.launch.serve --arch gpt2-small``, its defaults): it must
+    serve every request with finite metrics and launch the flash kernel."""
+    from repro_torch.launch import serve
+
+    kernels.reset_launch_counts()
+    m = serve.main(["--arch", "gpt2-small"])
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    print(f"serving CLI: launches {launches}")
+    check(m["requests"] > 0 and m["total_tokens"] > 0
+          and all(math.isfinite(v) for v in m.values()),
+          f"serving CLI: bad metrics {m}")
+    for name in SERVING_KERNELS:
+        check(launches[name] > 0, f"{name} never launched by the serving CLI")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
 
 
 def main() -> int:
@@ -413,12 +747,20 @@ def main() -> int:
 
     t0 = time.perf_counter()
     check_small_slice(torch)
-    print(f"phase 3: small slice agrees between card and CPU "
+    check_small_serving(torch)
+    print(f"phase 3: small slices agree between card and CPU "
           f"({time.perf_counter() - t0:.2f} s)")
 
     t0 = time.perf_counter()
-    launches = run_main_path(torch, kernels)
+    launches, params, calib, db, fam = run_main_path(torch, kernels)
     print(f"phase 4: main path done ({time.perf_counter() - t0:.2f} s)")
+
+    t0 = time.perf_counter()
+    launches.update({name: n for name, n in serve_family(
+        torch, kernels, params, calib, db, fam).items()
+        if name in SERVING_KERNELS})
+    serve_cli(torch, kernels)
+    print(f"phase 5: serving done ({time.perf_counter() - t0:.2f} s)")
 
     for name, rec in records.items():
         rec["launches"] = launches[name]

@@ -1,11 +1,17 @@
 """Model configuration dataclass (the port's own copy of ``ModelConfig``).
 
 The fields mirror the JAX package's ``ModelConfig``, apart from the
-options that choose how the JAX program executes (``attn_impl``, the flash
-block sizes, ``remat``, ``scan_layers``): the port has no such options and
-always runs dense attention over a Python loop of layers. The port's
-forward runs dense self-attention stacks only; ``models.transformer``
-rejects the families it does not run yet.
+options that choose how the JAX program is traced or tiled (``remat``,
+``scan_layers``, ``flash_block_q``, ``flash_block_k``): the port runs a
+Python loop of layers, and its flash kernel tiles by 64. ``attn_impl``
+chooses the attention of a full-sequence forward as the reference's
+``_select_impl`` does (``models.attention``): ``"flash_lax"`` runs the
+flash path (the hand-written flash-attention kernel on the card),
+``"auto"`` runs it only when the query and key lengths both exceed 2048,
+and every other value, ``"flash_pallas"`` included, runs dense attention.
+The serving engine's prefill takes the flash path whatever it says
+(``serve.engine``). The port's forward runs dense self-attention stacks
+only; ``models.transformer`` rejects the families it does not run yet.
 """
 from __future__ import annotations
 
@@ -65,8 +71,9 @@ class ModelConfig:
     tie_embeddings: bool = True
     norm_eps: float = 1e-5
 
-    # --- numerics ---
+    # --- numerics / execution ---
     dtype: str = "bfloat16"
+    attn_impl: str = "auto"  # auto | dense | flash_lax | flash_pallas
 
     # provenance
     source: str = ""

@@ -14,8 +14,9 @@ The port has the two units of dense models:
     head_dim rows);
   * ``ffn`` — ``W_down``, single-row groups.
 
-MoE experts, SSM heads, shrinking and the KV-cache plan are not ported
-yet.
+Each unit also says what it contributes to a layer's KV-cache plan
+(``kv_heads``) and how it shrinks a layer (``shrink_layer``). MoE experts
+and SSM heads are not ported yet.
 """
 from __future__ import annotations
 
@@ -96,6 +97,28 @@ class PruneUnit:
         (the module is dropped)."""
         raise NotImplementedError
 
+    # ---- serving ----
+    def kv_heads(self, cfg, db, assignment, layer: int) -> int:
+        """This unit's KV-head contribution to one layer's cache plan."""
+        return 0
+
+    # ---- shrink ----
+    def shrink_layer(self, cfg, ctx, layer: int, lcfg, lp) -> None:
+        """Materialise this unit's shrunk weights for one layer.
+
+        ``ctx`` is the weight source (``core.shrink``: host numpy over
+        params + database snapshots, or ``index_select`` over a stitched
+        tree on the device). Writes the surviving twin-weight slices into
+        ``lp`` and the structural counts onto ``lcfg`` (a
+        ``models.pruned.PrunedLayer``).
+        """
+        raise NotImplementedError
+
+
+def _rows_for_groups(kept: np.ndarray, gs: int) -> np.ndarray:
+    """Row indices of the kept groups of ``gs`` consecutive rows."""
+    return (kept[:, None] * gs + np.arange(gs)[None, :]).reshape(-1)
+
 
 class AttnUnit(PruneUnit):
     kind = "attn"
@@ -119,6 +142,39 @@ class AttnUnit(PruneUnit):
             return None
         return {"module": "attn", "groups": groups}
 
+    def kv_heads(self, cfg, db, assignment, layer):
+        name = f"L{layer}.attn"
+        if name in assignment:
+            return len(db[name].kept_structures(assignment[name]))
+        return cfg.num_kv_heads if self.layer_modules(cfg, layer) else 0
+
+    def shrink_layer(self, cfg, ctx, layer, lcfg, lp):
+        name = f"L{layer}.attn"
+        if name not in ctx.assignment:
+            return
+        mdb = ctx.db[name]
+        removed = ctx.assignment[name]
+        kept = mdb.kept_structures(removed)          # kv group ids
+        lcfg.kv_groups = len(kept)
+        if len(kept) == 0:
+            return
+        dh = cfg.resolved_head_dim
+        q_rows = _rows_for_groups(kept, cfg.q_per_kv * dh)
+        kv_rows = _rows_for_groups(kept, dh)
+        ap = ctx.layer_params("attn", layer)
+        new_attn = {
+            "wq": ctx.take(ap["wq"], q_rows, 1),
+            "wk": ctx.take(ap["wk"], kv_rows, 1),
+            "wv": ctx.take(ap["wv"], kv_rows, 1),
+            "wo": ctx.take(ctx.out_mat(mdb, removed, ap["wo"]), q_rows, 0),
+        }
+        if cfg.qkv_bias:
+            new_attn["bq"] = ctx.take(ap["bq"], q_rows, 0)
+            new_attn["bk"] = ctx.take(ap["bk"], kv_rows, 0)
+            new_attn["bv"] = ctx.take(ap["bv"], kv_rows, 0)
+        lp["attn"] = new_attn
+        lp["ln1"] = ctx.at_layer("ln1", layer)
+
 
 class FfnUnit(PruneUnit):
     kind = "ffn"
@@ -140,6 +196,29 @@ class FfnUnit(PruneUnit):
         if f_live <= 0:
             return None
         return {"module": "ffn", "f_live": f_live, "tokens": env.tokens}
+
+    def shrink_layer(self, cfg, ctx, layer, lcfg, lp):
+        name = f"L{layer}.ffn"
+        if name not in ctx.assignment:
+            return
+        mdb = ctx.db[name]
+        removed = ctx.assignment[name]
+        kept = mdb.kept_structures(removed)
+        lcfg.d_ff = len(kept)
+        if len(kept) == 0:
+            return
+        fp = ctx.layer_params("ffn", layer)
+        wd = ctx.take(ctx.out_mat(mdb, removed, fp["wd"]), kept, 0)
+        if "wg" in fp:
+            lp["ffn"] = {"wg": ctx.take(fp["wg"], kept, 1),
+                         "wu": ctx.take(fp["wu"], kept, 1),
+                         "wd": wd}
+        else:
+            lp["ffn"] = {"wi": ctx.take(fp["wi"], kept, 1),
+                         "bi": ctx.take(fp["bi"], kept, 0),
+                         "wd": wd,
+                         "bd": ctx.arr(fp["bd"])}
+        lp["ln2"] = ctx.at_layer("ln2", layer)
 
 
 # kind -> singleton; iteration order is the within-layer registry order
@@ -180,3 +259,30 @@ def get_capture(captures: Dict, mod: PrunableModule):
 def level_grid(mod: PrunableModule, steps: int = 43) -> List[int]:
     """Sparsity levels as 'structures removed' counts (see PruneUnit.grid)."""
     return UNITS[mod.kind].grid(mod, steps)
+
+
+# ----------------------------------------------------------------------
+# whole-layer dropping
+# ----------------------------------------------------------------------
+
+def drop_layer(assignment: Dict[str, int], mods: List[PrunableModule],
+               layer: int) -> Dict[str, int]:
+    """Copy of ``assignment`` with every module of ``layer`` at its full
+    drop level, the coarsest point of every per-layer grid. The pruned
+    runtime runs such a layer as an identity block."""
+    a = dict(assignment)
+    for m in mods:
+        if m.layer == layer:
+            a[m.name] = m.n_structures
+    return a
+
+
+def dropped_layers(cfg, assignment: Dict[str, int]) -> List[bool]:
+    """Per-layer whole-layer-drop flags: True iff the layer has prunable
+    modules and the assignment removes every structure of every one."""
+    out = []
+    for l in range(cfg.num_layers):
+        lm = [m for u in UNITS.values() for m in u.layer_modules(cfg, l)]
+        out.append(bool(lm) and all(
+            assignment.get(m.name, 0) >= m.n_structures for m in lm))
+    return out

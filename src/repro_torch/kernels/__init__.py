@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels of the port, each beside its plain
 PyTorch version and behind a wrapper that counts its launches."""
+from .flash_attention import flash_attention, flash_attention_plain
 from .hessian_accum import hessian_accum, hessian_accum_plain
 from .obs_downdate import obs_downdate, obs_downdate_plain
 
-KERNELS = (hessian_accum, obs_downdate)
+KERNELS = (hessian_accum, obs_downdate, flash_attention)
 
 
 def reset_launch_counts() -> None:
@@ -11,5 +12,6 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
-__all__ = ["KERNELS", "hessian_accum", "hessian_accum_plain", "obs_downdate",
+__all__ = ["KERNELS", "flash_attention", "flash_attention_plain",
+           "hessian_accum", "hessian_accum_plain", "obs_downdate",
            "obs_downdate_plain", "reset_launch_counts"]

@@ -1,4 +1,7 @@
-from .model import cross_entropy, loss_fn
-from .transformer import forward, model_init
+from .model import (cross_entropy, generate, loss_fn, sample_token,
+                    serve_prefill, serve_step)
+from .transformer import decode_step, forward, init_cache, model_init
 
-__all__ = ["cross_entropy", "forward", "loss_fn", "model_init"]
+__all__ = ["cross_entropy", "decode_step", "forward", "generate",
+           "init_cache", "loss_fn", "model_init", "sample_token",
+           "serve_prefill", "serve_step"]

@@ -79,10 +79,15 @@ def embedding_init(cfg, generator: torch.Generator):
     return p
 
 
-def embed_tokens(cfg, p, tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(cfg, p, tokens: torch.Tensor, positions=None
+                 ) -> torch.Tensor:
+    """Token (+ learned position) embeddings; ``positions`` defaults to
+    ``0..S-1`` (decode passes each row's absolute position)."""
     x = p["table"][tokens].to(compute_dtype(cfg))
     if cfg.pos_emb == "learned":
-        x = x + p["pos"][:tokens.shape[-1]].to(x.dtype)
+        pe = (p["pos"][:tokens.shape[-1]] if positions is None
+              else p["pos"][positions])
+        x = x + pe.to(x.dtype)
     return x
 
 
@@ -90,3 +95,25 @@ def unembed(cfg, emb_p, head_p, x: torch.Tensor) -> torch.Tensor:
     """Project hidden states back to vocabulary logits (fp32)."""
     w = emb_p["table"] if cfg.tie_embeddings else head_p["w"]
     return (x @ w.to(x.dtype).T).float()
+
+
+_F32_LEAVES = {"scale", "bias"}  # norm parameters stay fp32
+
+
+def cast_params(tree, dtype: torch.dtype):
+    """A copy of a params tree (nested dicts, lists and ``None``) with its
+    matmul weights, biases and embeddings in ``dtype`` and its norm
+    parameters left fp32. Every op already casts its weights to the
+    compute dtype, so running on the cast tree gives the same values;
+    casting once saves the per-call casts (the reference casts the layer
+    stack once per forward, ``_cast_layer_params``)."""
+    def cast(node, key=""):
+        if isinstance(node, dict):
+            return {k: cast(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [cast(v) for v in node]
+        if node is None or key in _F32_LEAVES \
+                or not torch.is_floating_point(node):
+            return node
+        return node.to(dtype)
+    return cast(tree)

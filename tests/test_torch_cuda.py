@@ -7,13 +7,15 @@ PyTorch is installed::
 
 TF32 is off, so the plain versions' products are full fp32. Tolerances:
 hessian_accum 1e-4·√N (the reference's accumulator tolerance; bf16 input
-converts exactly to fp32 on both sides), obs_downdate 1e-5.
+converts exactly to fp32 on both sides), obs_downdate 1e-5, flash
+attention 2e-5 fp32 and 2e-2 bf16 (the reference's).
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (hessian_accum, hessian_accum_plain,
+from repro_torch.kernels import (flash_attention, flash_attention_plain,
+                                 hessian_accum, hessian_accum_plain,
                                  obs_downdate, obs_downdate_plain)
 
 
@@ -108,3 +110,56 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda_device):
     inside_hinv = arrs[1].view(-1)[:2 * 4 * 24].view(2, 4, 24)
     with pytest.raises(ValueError, match="aliases"):
         obs_downdate(*arrs[:4], inside_hinv, arrs[5])
+
+
+# b, sq, sk, hq, hkv, d, causal, window, q_offset (None: sk - sq): the
+# reference's FLASH_CASES, GPT-2 small's serving prefills, gpt2-tiny's
+# head dim, and GQA with a window and queries inside the keys
+FLASH_CASES = [(2, 128, 128, 4, 4, 64, True, 0, None),
+               (1, 256, 256, 8, 2, 64, True, 0, None),
+               (2, 128, 128, 4, 1, 128, True, 64, None),
+               (1, 96, 224, 2, 2, 64, True, 0, None),
+               (1, 128, 128, 4, 4, 64, False, 0, None),
+               (2, 130, 130, 2, 2, 32, True, 0, None),
+               (1, 512, 512, 12, 12, 64, True, 0, None),
+               (1, 1024, 1024, 12, 12, 64, True, 0, None),
+               (3, 77, 77, 4, 4, 16, True, 0, None),
+               (2, 100, 300, 8, 2, 64, True, 96, 150)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda_device, case, dtype):
+    b, sq, sk, hq, hkv, d, causal, window, q_offset = case
+    g = torch.Generator(device=cuda_device).manual_seed(sq + sk)
+    q, k, v = (torch.randn(shape, device=cuda_device, generator=g).to(dtype)
+               for shape in ((b, sq, hq, d), (b, sk, hkv, d),
+                             (b, sk, hkv, d)))
+    kw = {"causal": causal, "window": window, "q_offset": q_offset}
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_plain(q, k, v, **kw)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_raises_on_inputs_it_does_not_take(cuda_device):
+    q = torch.randn((1, 8, 4, 64), device=cuda_device)
+    kv = torch.randn((1, 8, 2, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q[..., :48].contiguous(), kv[..., :48].contiguous(),
+                        kv[..., :48].contiguous())
+    with pytest.raises(ValueError, match="k must be"):
+        flash_attention(q, kv.double(), kv)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                        kv, kv)
+    with pytest.raises(ValueError, match="divide"):
+        flash_attention(q[:, :, :3].contiguous(), kv, kv)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention(q.half(), kv.half(), kv.half())

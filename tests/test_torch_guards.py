@@ -11,7 +11,9 @@ from repro_torch.core.database import SnapshotCache, build_database
 from repro_torch.core.hessian import collect_hessians
 from repro_torch.core.latency import build_table
 from repro_torch.core.oneshot import calib_loss_fn, oneshot_prune
-from repro_torch.models import model_init
+from repro_torch.core.shrink import shrink
+from repro_torch.launch import serve as serve_cli
+from repro_torch.models import init_cache, model_init
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.runtime.costmodel import InferenceEnv
 
@@ -38,7 +40,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 def test_port_files_are_found():
     names = {p.name for p in PORT_FILES}
-    assert {"oneshot.py", "obs_downdate.py", "chip_smoke.py"} <= names
+    assert {"oneshot.py", "obs_downdate.py", "flash_attention.py",
+            "shrink.py", "engine.py", "chip_smoke.py"} <= names
 
 
 ENV = InferenceEnv(batch=2, seq=8, hw=None)
@@ -53,6 +56,9 @@ ENTRY_POINTS = {
     "SnapshotCache": lambda: SnapshotCache(TINY, {}),
     "calib_loss_fn": lambda: calib_loss_fn(TINY, []),
     "oneshot_prune": lambda: oneshot_prune(TINY, {}, [], ENV, [2.0]),
+    "shrink": lambda: shrink(TINY, {"layers": {}}, {}, {}),
+    "init_cache": lambda: init_cache(TINY, 1, 8),
+    "launch.serve": lambda: serve_cli.main(["--arch", "gpt2-small"]),
 }
 
 

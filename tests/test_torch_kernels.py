@@ -5,7 +5,8 @@ kernels against their plain versions are in tests/test_torch_cuda.py.
 
 Tolerances are the reference's (tests/test_kernels.py,
 tests/test_batched_db.py): hessian_accum 1e-3·√N fp32, 1e-1·√N bf16,
-1e-4·√N with an accumulator; obs_downdate 1e-5.
+1e-4·√N with an accumulator; obs_downdate 1e-5; flash attention 2e-5
+fp32, 2e-2 bf16.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -13,9 +14,13 @@ import pytest
 import torch
 
 from repro.kernels import ops, ref
-from repro_torch.kernels import (hessian_accum, hessian_accum_plain,
+from repro.models.attention import \
+    flash_attention_chunked as ref_flash_attention_chunked
+from repro_torch.kernels import (flash_attention, flash_attention_plain,
+                                 hessian_accum, hessian_accum_plain,
                                  obs_downdate, obs_downdate_plain,
                                  reset_launch_counts)
+from repro_torch.models.attention import flash_attention_chunked
 
 
 def _x(shape, seed, dtype):
@@ -111,6 +116,58 @@ def test_obs_downdate_plain_matches_pallas(case):
                                        atol=1e-5, rtol=1e-5)
 
 
+# b, sq, sk, hq, hkv, d, causal, window: tests/test_kernels.py FLASH_CASES
+FLASH_CASES = [
+    (2, 128, 128, 4, 4, 64, True, 0),
+    (1, 256, 256, 8, 2, 64, True, 0),
+    (2, 128, 128, 4, 1, 128, True, 64),
+    (1, 96, 224, 2, 2, 64, True, 0),      # q shorter than kv (chunk case)
+    (1, 128, 128, 4, 4, 64, False, 0),    # bidirectional (encoder)
+    (2, 130, 130, 2, 2, 32, True, 0),     # non-multiple-of-block shapes
+]
+
+
+def _qkv(case, dtype, seed=0):
+    b, sq, sk, hq, hkv, d = case[:6]
+    return [_x(shape, seed + i, dtype) for i, shape in
+            enumerate([(b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d)])]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_pallas(case, dtype):
+    causal, window = case[6], case[7]
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(case, dtype)
+    want = ops.flash_attention(qj, kj, vj, causal=causal, window=window,
+                               block_q=64, block_k=64, interpret=True)
+    got = flash_attention_plain(qt, kt, vt, causal=causal, window=window)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+# sq, sk, hq, hkv, causal, window, chunk_target: each needs >= 2 query
+# chunks; the windowed one slices each chunk's keys to its band
+CHUNKED_CASES = [(96, 96, 4, 2, True, 0, 40), (80, 80, 2, 2, True, 24, 32),
+                 (64, 64, 2, 1, False, 0, 32)]
+
+
+@pytest.mark.parametrize("case", CHUNKED_CASES)
+def test_flash_attention_chunked_matches_reference(case):
+    sq, sk, hq, hkv, causal, window, target = case
+    (qj, qt), (kj, kt), (vj, vt) = _qkv((2, sq, sk, hq, hkv, 16), "float32",
+                                        seed=sq)
+    want = ref_flash_attention_chunked(qj, kj, vj, causal=causal,
+                                       window=window, block_k=32,
+                                       chunk_target=target)
+    got = flash_attention_chunked(qt, kt, vt, causal=causal, window=window,
+                                  chunk_target=target)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=2e-5, rtol=2e-5)
+
+
 def test_wrappers_use_plain_versions_on_cpu_without_launching():
     reset_launch_counts()
     xt = torch.randn(40, 12)
@@ -119,4 +176,9 @@ def test_wrappers_use_plain_versions_on_cpu_without_launching():
     for got, want in zip(obs_downdate(*arrs, d_live=16),
                          obs_downdate_plain(*arrs, d_live=16)):
         assert torch.equal(got, want)
+    q, k, v = (t for _, t in _qkv((1, 24, 40, 4, 2, 16), "float32"))
+    kw = {"causal": True, "window": 8, "q_offset": 10}
+    assert torch.equal(flash_attention(q, k, v, **kw),
+                       flash_attention_plain(q, k, v, **kw))
     assert hessian_accum.launches == 0 and obs_downdate.launches == 0
+    assert flash_attention.launches == 0
