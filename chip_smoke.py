@@ -9,12 +9,14 @@ Phases (any failure exits non-zero and prints no result):
    (one ``nvcc`` per source, all started together);
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (plus ragged, ``d_live``, bf16, GQA,
-   window and ``q_offset`` cases), and time kernel, plain version and,
-   where one exists, the single PyTorch call that computes the same
-   function;
+   window, ``q_offset`` and SSD chunk-size cases, and the whole chunked
+   SSD scan against the token-by-token recurrence), and time kernel,
+   plain version and, where one exists, the single PyTorch call that
+   computes the same function;
 3. check the slices on small models: the card's run (kernels) against the
-   CPU run (plain versions) on the same weights and Hessians, and a
-   2-layer model's prefill logits and served tokens;
+   CPU run (plain versions) on the same weights and Hessians, a 2-layer
+   model's prefill logits and served tokens, and a 2-layer Mamba-2's
+   logits, Hessians, database errors and greedy tokens;
 4. the main path: ``oneshot_prune`` on full-width GPT-2 small (12 layers,
    d_model 768, 12 heads, d_ff 3072, vocab 50257) with seeded weights,
    numpy calibration batches, a latency table measured on the card and
@@ -35,7 +37,17 @@ Phases (any failure exits non-zero and prints no result):
    zeroed just before and read just after; engine tokens against
    per-request decoding, KV bytes against the shrunk structures; then
    the serving CLI (``repro_torch.launch.serve --arch gpt2-small``) as a
-   user runs it, which must launch the flash kernel too.
+   user runs it, which must launch the flash kernel too;
+6. the Mamba-2 slice: ``oneshot_prune`` on Mamba-2 2.7B at full width
+   (d_model 2560, 80 SSD heads x 64, state 128, chunk 128, vocab 50280)
+   with 8 of its 64 layers, seeded weights, the same calibration, table
+   and search as phase 4 and targets 1.25x/1.5x/2x, with the launch
+   counts zeroed just before and read just after (the SSD kernel,
+   hessian_accum and obs_downdate must each have launched); the
+   prior-scored family, each member shrunk (``shrink`` ==
+   ``shrink_from_stitched``) and run against its stitched model; then the
+   dense model generates from 512-token prompts (prefill through the SSD
+   kernel, then the recurrent decode).
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 product on the
 card is a full fp32 product and the fp32 tolerances below hold.
@@ -63,9 +75,11 @@ HBM_BYTES_PER_S = 3.35e12
 # the main path's measured latency table: each module level the mean of
 # 50 calls after 5 untimed ones
 LATENCY_KW = {"reps": 50, "warmup": 5}
-# kernels the one-shot path (phase 4) and the serving path (phase 5) run
+# kernels the one-shot path (phase 4), the serving path (phase 5) and the
+# Mamba-2 path (phase 6) run
 ONESHOT_KERNELS = ("hessian_accum", "obs_downdate")
 SERVING_KERNELS = ("flash_attention",)
+SSM_KERNELS = ("ssd_intra_chunk", "hessian_accum", "obs_downdate")
 
 
 def fail(msg: str) -> int:
@@ -209,6 +223,7 @@ def check_kernels(torch, kernels):
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b, "bound_by": by, "library_ms": None}
     records["flash_attention"] = check_flash(torch, kernels, g)
+    records["ssd_intra_chunk"] = check_ssd(torch, kernels, g)
     return records
 
 
@@ -293,6 +308,170 @@ def check_flash(torch, kernels, g):
             "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms}
 
 
+# b, s, h, p, n, chunk: the reference's SSD_CASES (tests/test_kernels.py;
+# s = 50 with chunk 16 is ragged), then Mamba-2 2.7B's calibration batch
+# (8 x 512 tokens, so (b, nc, q) = (8, 4, 128): the timed shape), a chunk
+# of 256 and a ragged length at the full width
+SSD_CASES = [(2, 64, 4, 32, 16, 32), (1, 96, 8, 16, 8, 32),
+             (2, 50, 2, 64, 32, 16), (1, 128, 6, 32, 16, 64)]
+SSD_MAIN = (8, 512, 80, 64, 128, 128)
+SSD_WIDE = [(1, 512, 80, 64, 128, 256), (2, 300, 80, 64, 128, 128)]
+# kernel vs plain, by the type of B and C: in fp32, sums of up to a chunk
+# of terms in another order (atol = rtol = 1e-4); with bf16 B and C the
+# plain version rounds the scores to bf16 as the reference's model twin
+# does and the kernel keeps them fp32, a relative 2^-9 per score summed
+# over up to a chunk of terms (2e-2 of the output's largest magnitude)
+SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def ssd_close(torch, got, want, bc):
+    """(max abs error, ok) of the SSD outputs under SSD_TOL[bc]."""
+    tol, err, ok = SSD_TOL[bc], 0.0, True
+    for a, b in zip(got, want):
+        err = max(err, float((a - b).abs().max()))
+        if bc == "float32":
+            ok = ok and bool(torch.allclose(a, b, atol=tol, rtol=tol))
+        else:
+            ok = ok and err <= tol * float(b.abs().max())
+    return err, ok
+# the chunked scan against the recurrence: the reference's SSD tolerance
+SSD_SCAN_TOL = 2e-3
+
+
+def ssd_data(torch, case, dtype, g):
+    """x, dt (softplus'ed), A, B, C on the card; x, B, C in ``dtype``."""
+    b, s, h, p, n, _ = case
+    dev = torch.device("cuda")
+    x = torch.randn((b, s, h, p), device=dev, generator=g) * 0.5
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), device=dev, generator=g))
+    A = -torch.exp(torch.randn((h,), device=dev, generator=g) * 0.3)
+    B, C = (torch.randn((b, s, n), device=dev, generator=g) * 0.5
+            for _ in range(2))
+    return x.to(dtype), dt, A, B.to(dtype), C.to(dtype)
+
+
+def ssd_recurrence(torch, x, dt, A, B, C, initial_state=None):
+    """Token-by-token SSD recurrence, the reference's ``ref.ssd_ref``."""
+    b, s, h, p = x.shape
+    state = (initial_state if initial_state is not None else
+             torch.zeros((b, h, p, B.shape[-1]), device=x.device))
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dt[:, t] * A)
+        state = state * decay[..., None, None] + torch.einsum(
+            "bh,bn,bhp->bhpn", dt[:, t], B[:, t].float(), x[:, t].float())
+        ys.append(torch.einsum("bn,bhpn->bhp", C[:, t].float(), state))
+    return torch.stack(ys, 1).to(x.dtype), state
+
+
+def check_ssd(torch, kernels, g):
+    """Phase 2, the SSD intra-chunk pass: the reference's cases in fp32,
+    the full-width shapes with x, B and C made in bf16 (xdt formed as the
+    model forms it) and B, C handed over in fp32 and in bf16; then the
+    whole chunked scan against the recurrence, with and without an
+    initial state; timed at the calibration batch as the main path runs
+    it (bf16 B and C)."""
+    from repro_torch.kernels import ssd_intra_chunk_plain
+    from repro_torch.kernels.ssd_scan import intra_chunk_inputs, ssd_chunked
+    cases = ([(c, "float32", "float32") for c in SSD_CASES]
+             + [(c, "bfloat16", bc) for c in [SSD_MAIN] + SSD_WIDE
+                for bc in ("float32", "bfloat16")])
+    for case, in_dt, bc in cases:
+        x, dt, A, B, C = ssd_data(torch, case, getattr(torch, in_dt), g)
+        xdt, dacs, Bb, Cb = intra_chunk_inputs(x, dt, A, B, C, case[-1])
+        Bb, Cb = Bb.to(getattr(torch, bc)), Cb.to(getattr(torch, bc))
+        got = kernels.ssd_intra_chunk(xdt, dacs, Bb, Cb)
+        torch.cuda.synchronize()
+        want = ssd_intra_chunk_plain(xdt, dacs, Bb, Cb)
+        err, ok = ssd_close(torch, got, want, bc)
+        tol = (f"atol {SSD_TOL[bc]:g} + rtol {SSD_TOL[bc]:g}*|plain|"
+               if bc == "float32" else f"{SSD_TOL[bc]:g}*max|plain|")
+        print(f"ssd_intra_chunk (b, s, h, p, n, chunk)={case} x {in_dt}, "
+              f"B/C {bc}: (b, nc, q)={tuple(xdt.shape[:3])} max_abs_err="
+              f"{err:.3e} ({tol}) {'ok' if ok else 'MISMATCH'}")
+        check(ok, f"ssd_intra_chunk disagrees at {case} B/C {bc}")
+        if case == SSD_MAIN and bc == "bfloat16":
+            timed = (xdt, dacs, Bb, Cb, err)
+        del x, dt, B, C, xdt, dacs, Bb, Cb, got, want
+
+    for case in (SSD_CASES[2], (1, 300, 8, 64, 128, 128)):
+        b, s, h, p, n, chunk = case
+        x, dt, A, B, C = ssd_data(torch, case, torch.float32, g)
+        init = torch.randn((b, h, p, n), device="cuda", generator=g) * 0.1
+        for state in (None, init):
+            y, st = ssd_chunked(x, dt, A, B, C, chunk, initial_state=state)
+            y_w, st_w = ssd_recurrence(torch, x, dt, A, B, C, state)
+            err = max(float((y - y_w).abs().max()),
+                      float((st - st_w).abs().max()))
+            ok = bool(torch.allclose(y, y_w, atol=SSD_SCAN_TOL,
+                                     rtol=SSD_SCAN_TOL)) and bool(
+                torch.allclose(st, st_w, atol=SSD_SCAN_TOL,
+                               rtol=SSD_SCAN_TOL))
+            print(f"ssd_chunked {case} initial_state="
+                  f"{'given' if state is not None else 'none'} vs the "
+                  f"recurrence: max_abs_err={err:.3e} (tol {SSD_SCAN_TOL:g})"
+                  f" {'ok' if ok else 'MISMATCH'}")
+            check(ok, f"ssd_chunked disagrees with the recurrence at {case}")
+
+    xdt, dacs, Bb, Cb, err = timed
+    b, nc, q, h, p = xdt.shape
+    n = Bb.shape[-1]
+    ms = time_ms(lambda: kernels.ssd_intra_chunk(xdt, dacs, Bb, Cb))
+    plain_ms = time_ms(lambda: ssd_intra_chunk_plain(xdt, dacs, Bb, Cb))
+    # per chunk: the causal scores Q(Q+1)/2 x N, y_diag Q(Q+1)/2 x H x P
+    # (causal) and the states Q x H x P x N multiply-adds; each input read
+    # and each output written once
+    tri = q * (q + 1) / 2
+    ops = 2.0 * b * nc * (tri * n + tri * h * p + q * h * p * n)
+    nbytes = (4.0 * (xdt.numel() + dacs.numel())
+              + Bb.element_size() * (Bb.numel() + Cb.numel())
+              + 4.0 * (xdt.numel() + b * nc * h * p * n))
+    bnd, by = bound_ms(nbytes, ops, PEAK_FP32)
+    print(f"ssd_intra_chunk (b, nc, q, h, p, n)={(b, nc, q, h, p, n)} B/C "
+          f"bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no single "
+          f"PyTorch call, bound {bnd:.4f} ms ({by}; {ops / 1e9:.3f} GFLOP "
+          f"over {PEAK_FP32 / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.2f} MB over "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {ops / ms / 1e9:.1f} TFLOP/s")
+    return {"name": "ssd_intra_chunk", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:52",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd, "bound_by": by, "library_ms": None}
+
+
+def compare_databases(np, db_cpu, db_gpu, label):
+    """The card's database against the CPU's. The card's inverse and
+    reductions round differently from the CPU's, and Algorithm 1 meets
+    near-ties late in a run (a 1e-6 relative perturbation of a Hessian
+    already swaps two neighbouring removals on the CPU). So: the removed
+    sets at each level may differ by a few near-tied structures; where
+    they coincide the snapshots agree at fp16 tolerance, and every
+    level's error agrees to 1e-3."""
+    for name, a in db_cpu.items():
+        b = db_gpu[name]
+        n = a.mod.n_structures
+        same = int(np.argmin(np.append(a.order == b.order, False)))
+        worst, checked = 0, 0
+        for i, lvl in enumerate(a.levels):
+            diff = len(set(a.order[:lvl].tolist())
+                       ^ set(b.order[:lvl].tolist())) // 2
+            worst = max(worst, diff)
+            if diff == 0:
+                checked += 1
+                np.testing.assert_allclose(
+                    b.snapshots[i].astype(np.float32),
+                    a.snapshots[i].astype(np.float32), atol=2e-3, rtol=2e-3,
+                    err_msg=f"{name} level {lvl}")
+        np.testing.assert_allclose(b.errors, a.errors, rtol=1e-3, atol=1e-6,
+                                   err_msg=name)
+        print(f"{label}: {name} card vs CPU: first {same}/{len(a.order)} "
+              f"removals identical, removed sets differ by at most {worst} "
+              f"structure(s) at a level, {checked}/{len(a.levels)} levels' "
+              f"snapshots within fp16 tolerance, errors within 1e-3")
+        check(worst <= max(1, n // 50), f"{name}: removed sets differ")
+
+
 def check_small_slice(torch):
     """Phase 3: a 2-layer GPT-2 (fp32) run on the card and on the CPU:
     Hessians, database and the stitched members' losses must agree."""
@@ -322,36 +501,9 @@ def check_small_slice(torch):
           f"(scale {hscale:.3e}, tol 1e-4*scale)")
     check(herr <= 1e-4 * hscale, "Hessians disagree between card and CPU")
 
-    # The card's inverse and reductions round differently from the CPU's,
-    # and Algorithm 1 meets near-ties late in a run (a 1e-6 relative
-    # perturbation of these Hessians already swaps two neighbouring FFN
-    # removals on the CPU). So: the removed sets at each level may differ
-    # by a few near-tied structures; where they coincide the snapshots
-    # agree at fp16 tolerance, and every level's error agrees to 1e-3.
     db_cpu = build_database(cfg, p_cpu, h_cpu, device="cpu")
     db_gpu = build_database(cfg, p_gpu, h_cpu, device="cuda")
-    for name, a in db_cpu.items():
-        b = db_gpu[name]
-        n = a.mod.n_structures
-        same = int(np.argmin(np.append(a.order == b.order, False)))
-        worst, checked = 0, 0
-        for i, lvl in enumerate(a.levels):
-            diff = len(set(a.order[:lvl].tolist())
-                       ^ set(b.order[:lvl].tolist())) // 2
-            worst = max(worst, diff)
-            if diff == 0:
-                checked += 1
-                np.testing.assert_allclose(
-                    b.snapshots[i].astype(np.float32),
-                    a.snapshots[i].astype(np.float32), atol=2e-3, rtol=2e-3,
-                    err_msg=f"{name} level {lvl}")
-        np.testing.assert_allclose(b.errors, a.errors, rtol=1e-3, atol=1e-6,
-                                   err_msg=name)
-        print(f"small slice: {name} card vs CPU: first {same}/{len(a.order)} "
-              f"removals identical, removed sets differ by at most {worst} "
-              f"structure(s) at a level, {checked}/{len(a.levels)} levels' "
-              f"snapshots within fp16 tolerance, errors within 1e-3")
-        check(worst <= max(1, n // 50), f"{name}: removed sets differ")
+    compare_databases(np, db_cpu, db_gpu, "small slice")
 
     env = InferenceEnv(batch=4, seq=64, hw=None)
     table = build_table(cfg, env, backend="measure", device="cpu")
@@ -402,6 +554,53 @@ def check_small_serving(torch):
     print(f"small serving: greedy tokens of {len(reqs)} requests card == "
           f"CPU: {tokens['cuda'] == tokens['cpu']}")
     check(tokens["cuda"] == tokens["cpu"], "served tokens differ")
+
+
+def check_small_ssm(torch):
+    """Phase 3, Mamba-2: the reference's smoke shape (2 layers, d_model
+    128, 8 SSD heads x 32, state 16, chunk 32, vocab 512) in fp32 on the
+    card (the SSD kernel) and on the CPU (its plain version), on the same
+    weights: logits within 1e-4 of their scale, Hessians within 1e-4 of
+    theirs, database errors as for the small GPT-2, greedy tokens equal."""
+    import numpy as np
+    from repro_torch.configs import MAMBA2_2P7B
+    from repro_torch.core.database import build_database
+    from repro_torch.core.hessian import collect_hessians
+    from repro_torch.data import calibration_batches
+    from repro_torch.models import forward, generate, model_init
+    from repro_torch.models.transformer import tree_to
+
+    cfg = MAMBA2_2P7B.replace(name="mamba2-smoke", num_layers=2, d_model=128,
+                              ssm_state=16, ssm_head_dim=32, ssm_chunk=32,
+                              vocab_size=512, dtype="float32")
+    p_cpu = model_init(cfg, torch.Generator().manual_seed(3), device="cpu")
+    p_gpu = tree_to(p_cpu, "cuda")
+    calib = calibration_batches(cfg, 16, 64, batch=8)
+    tokens = calib[0]["tokens"]
+    lg_cpu = forward(cfg, p_cpu, tokens)["logits"]
+    lg_gpu = forward(cfg, p_gpu, tokens.cuda())["logits"].cpu()
+    err, scale = float((lg_gpu - lg_cpu).abs().max()), float(
+        lg_cpu.abs().max())
+    print(f"small Mamba-2: logits card vs CPU max_abs_err={err:.3e} (scale "
+          f"{scale:.3e}, tol 1e-4*scale)")
+    check(err <= 1e-4 * scale, "Mamba-2 logits disagree between card and CPU")
+    h_cpu = collect_hessians(cfg, p_cpu, calib, device="cpu")
+    h_gpu = collect_hessians(cfg, p_gpu, calib, device="cuda")
+    herr = max(float((h_gpu[k].cpu() - h_cpu[k]).abs().max()) for k in h_cpu)
+    hscale = max(float(h.abs().max()) for h in h_cpu.values())
+    print(f"small Mamba-2: Hessians card vs CPU max_abs_err={herr:.3e} "
+          f"(scale {hscale:.3e}, tol 1e-4*scale)")
+    check(herr <= 1e-4 * hscale,
+          "Mamba-2 Hessians disagree between card and CPU")
+    compare_databases(np, build_database(cfg, p_cpu, h_cpu, device="cpu"),
+                      build_database(cfg, p_gpu, h_cpu, device="cuda"),
+                      "small Mamba-2")
+    prompt = tokens[:2, :40]
+    t_cpu = generate(cfg, p_cpu, prompt, 12)
+    t_gpu = generate(cfg, p_gpu, prompt.cuda(), 12).cpu()
+    print(f"small Mamba-2: greedy tokens of {tuple(prompt.shape)} prompts, "
+          f"12 steps, card == CPU: {torch.equal(t_gpu, t_cpu)}")
+    check(torch.equal(t_gpu, t_cpu), "Mamba-2 greedy tokens differ")
 
 
 def run_main_path(torch, kernels):
@@ -702,6 +901,142 @@ def serve_cli(torch, kernels):
         check(launches[name] > 0, f"{name} never launched by the serving CLI")
 
 
+# phase 6: Mamba-2 2.7B at full width with 8 of its 64 layers. Each layer's
+# database keeps 81 fp16 snapshots of its 5120 x 2560 out_proj (2.12 GB),
+# all resident on the card in the SnapshotCache: 64 layers (136 GB) would
+# not fit, 8 (17.0 GB) do
+SSM_LAYERS = 8
+# with 8 layers the unprunable logits head (2048 x 2560 x 50280) is about
+# a third of the dense runtime, so a member can be at most about 2.6x
+# faster than the dense model by operation count: 3x is out of reach
+SSM_TARGETS = [1.25, 1.5, 2.0]
+# the dense model generates SSM_GEN tokens from 2 prompts of SSM_PROMPT
+SSM_PROMPT, SSM_GEN = 512, 8
+
+
+def run_ssm_path(torch, kernels):
+    """Phase 6: oneshot_prune on Mamba-2 2.7B, shrink, and generate."""
+    from repro_torch.configs import MAMBA2_2P7B
+    from repro_torch.core.database import apply_assignment
+    from repro_torch.core.oneshot import oneshot_prune
+    from repro_torch.core.shrink import shrink, shrink_from_stitched
+    from repro_torch.data import calibration_batches
+    from repro_torch.models import (forward, generate, model_init,
+                                    serve_prefill, serve_step)
+    from repro_torch.models.pruned import forward_pruned
+    from repro_torch.runtime.costmodel import InferenceEnv
+
+    cfg = MAMBA2_2P7B.replace(num_layers=SSM_LAYERS)
+    t0 = time.perf_counter()
+    params = model_init(cfg, torch.Generator().manual_seed(0), device="cuda")
+    calib = calibration_batches(cfg, 32, 512, batch=8)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    env = InferenceEnv(batch=16, seq=128, mode="prefill", hw=None)
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = oneshot_prune(cfg, params, calib, env, SSM_TARGETS,
+                        latency_backend="measure", latency_kw=LATENCY_KW,
+                        search_steps=48, search_pop=16, seed=0,
+                        device="cuda")
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    snap_bytes = sum(m.snapshots.nbytes for m in res.db.values())
+
+    print(f"Mamba-2 path: {cfg.name} layers={cfg.num_layers} of "
+          f"{MAMBA2_2P7B.num_layers} d_model={cfg.d_model} "
+          f"d_inner={cfg.d_inner} heads={cfg.ssm_heads}x{cfg.ssm_head_dim} "
+          f"state={cfg.ssm_state} chunk={cfg.ssm_chunk} "
+          f"vocab={cfg.vocab_size} dtype={cfg.dtype}; calibration 32 x 512 "
+          f"tokens in batches of 8; env batch={env.batch} seq={env.seq} "
+          f"{env.mode}, measured table ({LATENCY_KW}); targets {SSM_TARGETS}")
+    print(f"Mamba-2 path: setup (weights + tokens) {setup_s:.3f} s, "
+          f"oneshot_prune {total_s:.3f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, database "
+          f"snapshots {snap_bytes} bytes ({snap_bytes / cfg.num_layers / 1e9:.2f}"
+          f" GB a layer)")
+    print("Mamba-2 stage seconds: " + json.dumps(
+        {k: round(v, 4) for k, v in res.stage_seconds.items()}))
+    print(f"Mamba-2 path launches: {launches}")
+    print(f"Mamba-2 dense: table runtime {res.dense_runtime * 1e3:.4f} ms "
+          f"(logits head {res.table.base * 1e3:.4f} ms), calibration loss "
+          f"{res.dense_loss:.4f}")
+    for t in SSM_TARGETS:
+        v = res.variants[t]
+        print(f"  target {t}x: speedup {v.speedup:.3f}x, runtime "
+              f"{v.runtime * 1e3:.4f} ms, loss {v.calib_loss:.4f}, heads "
+              f"removed {sum(v.assignment.values())}, evals "
+              f"{v.search.n_evals}")
+        check(v.speedup >= t, f"Mamba-2 target {t}x not met: {v.speedup:.4f}x")
+        check(math.isfinite(v.calib_loss), f"Mamba-2 {t}x: non-finite loss")
+        w = v.params["layers"]["ssm"]["out_proj"]
+        check(w.shape == params["layers"]["ssm"]["out_proj"].shape
+              and bool(torch.isfinite(w).all()),
+              f"Mamba-2 {t}x: out_proj has the wrong shape or non-finite "
+              "values")
+    check(math.isfinite(res.dense_loss), "Mamba-2: non-finite dense loss")
+    for name in SSM_KERNELS:
+        check(launches[name] > 0, f"{name} never launched on the Mamba-2 path")
+    fam = check_prior_family(torch, cfg, params, calib, res, SSM_TARGETS)
+
+    tokens = calib[0]["tokens"].cuda()
+    with torch.no_grad():
+        for t in SSM_TARGETS:
+            a = fam[t].assignment
+            stitched = apply_assignment(cfg, params, res.db, a)
+            host_pm = shrink(cfg, params, res.db, a, device="cuda")
+            dev_pm = shrink_from_stitched(cfg, stitched, res.db, a)
+            hl, dl = (_leaves([l.params for l in pm.layers] + [pm.globals_])
+                      for pm in (host_pm, dev_pm))
+            same = len(hl) == len(dl) and all(
+                x.dtype == y.dtype and torch.equal(x, y)
+                for x, y in zip(hl, dl)) and [
+                l.ssm_heads for l in host_pm.layers] == [
+                l.ssm_heads for l in dev_pm.layers]
+            want = forward(cfg, stitched, tokens)["logits"]
+            got = forward_pruned(host_pm, tokens)
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            finite = bool(torch.isfinite(got).all())
+            print(f"  prior-scored {t}x shrunk: SSD heads per layer "
+                  f"{[l.ssm_heads for l in host_pm.layers]}, params "
+                  f"{host_pm.num_params()}, shrink_from_stitched == shrink "
+                  f"({len(hl)} leaves bit-equal): {same}; logits vs stitched "
+                  f"on {tuple(tokens.shape)} tokens max_abs_err={err:.4e} "
+                  f"(scale {scale:.4e}, tol {STITCHED_TOL:g}*scale), finite "
+                  f"{finite}")
+            check(same, f"Mamba-2 {t}x: shrink_from_stitched differs from "
+                  "shrink")
+            check(finite and err <= STITCHED_TOL * scale,
+                  f"Mamba-2 {t}x: shrunk logits disagree with the stitched "
+                  "model")
+            del stitched, host_pm, dev_pm, want, got
+
+        prompt = tokens[:2, :SSM_PROMPT]
+        t0 = time.perf_counter()
+        logits, cache = serve_prefill(cfg, params, {"tokens": prompt},
+                                      max_len=SSM_PROMPT + SSM_GEN)
+        finite = bool(torch.isfinite(logits).all())
+        toks = [logits.argmax(-1)]
+        for _ in range(SSM_GEN - 1):
+            logits, cache = serve_step(cfg, params, cache, toks[-1])
+            finite = finite and bool(torch.isfinite(logits).all())
+            toks.append(logits.argmax(-1))
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        out = generate(cfg, params, prompt, SSM_GEN)
+    print(f"Mamba-2 generate: {tuple(prompt.shape)} prompts, {SSM_GEN} "
+          f"tokens in {gen_s:.3f} s (prefill + recurrent decode), logits "
+          f"finite {finite}, tokens {out.tolist()}")
+    check(finite, "Mamba-2 generate: non-finite logits")
+    check(torch.equal(out, torch.cat(toks, dim=1)),
+          "Mamba-2 generate differs from its prefill and decode steps")
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -748,6 +1083,7 @@ def main() -> int:
     t0 = time.perf_counter()
     check_small_slice(torch)
     check_small_serving(torch)
+    check_small_ssm(torch)
     print(f"phase 3: small slices agree between card and CPU "
           f"({time.perf_counter() - t0:.2f} s)")
 
@@ -761,6 +1097,13 @@ def main() -> int:
         if name in SERVING_KERNELS})
     serve_cli(torch, kernels)
     print(f"phase 5: serving done ({time.perf_counter() - t0:.2f} s)")
+    del params, calib, db, fam
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ssm_launches = run_ssm_path(torch, kernels)
+    launches["ssd_intra_chunk"] = ssm_launches["ssd_intra_chunk"]
+    print(f"phase 6: Mamba-2 path done ({time.perf_counter() - t0:.2f} s)")
 
     for name, rec in records.items():
         rec["launches"] = launches[name]

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's one-shot path, on one GPU.
 
-    python3 scripts/profile_torch_oneshot.py [--layers 12] [--steps 48]
+    python3 scripts/profile_torch_oneshot.py [--arch gpt2-small]
+        [--layers N] [--steps 48]
 
-Runs ``oneshot_prune`` on GPT-2 small (full width, seeded weights,
-32 x 512 calibration tokens, a latency table measured for batch 16 x 128
-prefill, targets 1.5x/2x/3x) once to warm up and once under
+Runs ``oneshot_prune`` on GPT-2 small (12 layers, targets 1.5x/2x/3x) or
+Mamba-2 2.7B (``--arch mamba2-2.7b``: 8 of its 64 layers, targets
+1.25x/1.5x/2x, as ``chip_smoke.py`` phase 6 runs it) at full width with
+seeded weights, 32 x 512 calibration tokens and a latency table measured
+for batch 16 x 128 prefill, once to warm up and once under
 ``torch.profiler``. ``oneshot_prune`` marks each of its stages as a
 profiler range ``oneshot_prune.<stage>``; every device activity (kernel
 or copy) is put in the stage whose range it starts in. For each stage it
@@ -29,6 +32,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "src"))
 
 RANGE = "oneshot_prune."
+# arch -> (config name in repro_torch.configs, default depth, targets)
+ARCHS = {"gpt2-small": ("GPT2_SMALL", 12, [1.5, 2.0, 3.0]),
+         "mamba2-2.7b": ("MAMBA2_2P7B", 8, [1.25, 1.5, 2.0])}
 
 
 def stage_activity(prof):
@@ -54,7 +60,10 @@ def stage_activity(prof):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--layers", type=int, default=12)
+    ap.add_argument("--arch", choices=sorted(ARCHS), default="gpt2-small")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth (default: 12 for gpt2-small, 8 for "
+                         "mamba2-2.7b)")
     ap.add_argument("--steps", type=int, default=48)
     ap.add_argument("--top", type=int, default=8)
     args = ap.parse_args()
@@ -70,21 +79,24 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
 
-    from repro_torch.configs import GPT2_SMALL
+    from repro_torch import configs
     from repro_torch.core.oneshot import oneshot_prune
     from repro_torch.data import calibration_batches
     from repro_torch.models import model_init
     from repro_torch.runtime.costmodel import InferenceEnv
 
-    cfg = GPT2_SMALL.replace(num_layers=args.layers)
+    name, depth, targets = ARCHS[args.arch]
+    cfg = getattr(configs, name)
+    cfg = cfg.replace(num_layers=args.layers or depth)
     params = model_init(cfg, torch.Generator().manual_seed(0), device="cuda")
     calib = calibration_batches(cfg, 32, 512, batch=8)
     env = InferenceEnv(batch=16, seq=128, mode="prefill", hw=None)
     print(f"{cfg.name}: layers={cfg.num_layers} d_model={cfg.d_model} "
-          f"d_ff={cfg.d_ff} dtype={cfg.dtype}")
+          f"d_ff={cfg.d_ff} ssm_heads={cfg.ssm_heads} dtype={cfg.dtype}, "
+          f"targets {targets}")
 
     def run():
-        return oneshot_prune(cfg, params, calib, env, [1.5, 2.0, 3.0],
+        return oneshot_prune(cfg, params, calib, env, targets,
                              latency_backend="measure",
                              latency_kw={"reps": 50, "warmup": 5},
                              search_steps=args.steps, search_pop=16, seed=0,

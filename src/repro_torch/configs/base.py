@@ -11,7 +11,8 @@ flash path (the hand-written flash-attention kernel on the card),
 and every other value, ``"flash_pallas"`` included, runs dense attention.
 The serving engine's prefill takes the flash path whatever it says
 (``serve.engine``). The port's forward runs dense self-attention stacks
-only; ``models.transformer`` rejects the families it does not run yet.
+and Mamba-2 (SSD) stacks; ``models.transformer`` rejects the families it
+does not run yet.
 """
 from __future__ import annotations
 
@@ -81,6 +82,15 @@ class ModelConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // max(self.num_heads, 1))
+
+    @property
+    def d_inner(self) -> int:
+        """SSM inner dim."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
 
     @property
     def q_per_kv(self) -> int:

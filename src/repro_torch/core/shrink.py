@@ -5,6 +5,8 @@ dead; which twins die with which structures is each kind's
 ``PruneUnit.shrink_layer`` (``core.structures``):
 
   * attn: removed KV groups -> slice q/k/v projection columns + wo rows
+  * ssm:  removed SSD heads -> slice in_z/in_x/conv_x/norm columns and
+          in_dt/A_log/D/dt_bias entries + out_proj rows (B/C kept whole)
   * ffn:  removed FC2 rows  -> slice wg/wu (or wi/bi) columns + wd rows
 
 A layer whose every unit sits at its full-drop level shrinks to an empty

@@ -8,15 +8,18 @@ its level grid in structures removed (``grid``; every grid ends at the
 full module drop), and what a level costs (``cost_time`` for the
 analytic model, ``timing_spec`` for the measured backend).
 
-The port has the two units of dense models:
+The port has three units:
 
   * ``attn`` — ``W_o``, one group per KV head (q_per_kv query heads x
     head_dim rows);
+  * ``ssm`` (Mamba-2/SSD) — ``out_proj``, one group per SSD head
+    (ssm_head_dim rows); the in-projection, conv, A/D/dt and norm twins
+    shrink with it;
   * ``ffn`` — ``W_down``, single-row groups.
 
 Each unit also says what it contributes to a layer's KV-cache plan
 (``kv_heads``) and how it shrinks a layer (``shrink_layer``). MoE experts
-and SSM heads are not ported yet.
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -32,10 +35,10 @@ from ..runtime import costmodel as cm
 @dataclass(frozen=True)
 class PrunableModule:
     name: str                 # "L{layer}.{kind}"
-    kind: str                 # attn | ffn
+    kind: str                 # attn | ssm | ffn
     layer: int
     expert: int = -1
-    weight_key: str = ""      # leaf name of the out-side matrix ("wo"/"wd")
+    weight_key: str = ""      # leaf name of the out-side matrix
     capture_key: str = ""     # capture feeding this matrix
     group_size: int = 1
     n_structures: int = 0
@@ -176,6 +179,62 @@ class AttnUnit(PruneUnit):
         lp["ln1"] = ctx.at_layer("ln1", layer)
 
 
+class SsmUnit(PruneUnit):
+    kind = "ssm"
+    param_path = ("ssm", "out_proj")
+
+    def layer_modules(self, cfg, layer):
+        if not cfg.ssm_state:
+            return []
+        return [PrunableModule(
+            name=f"L{layer}.ssm", kind="ssm", layer=layer,
+            weight_key="out_proj", capture_key="ssm_out_in",
+            group_size=cfg.ssm_head_dim, n_structures=cfg.ssm_heads)]
+
+    def get_capture(self, layer_caps, mod):
+        x = layer_caps["ssm_out_in"]  # a layer-level capture
+        return x.reshape(-1, x.shape[-1]), None
+
+    def cost_time(self, cfg, env, removed):
+        return cm.ssm_time(cfg, env, cfg.ssm_heads - removed)
+
+    def timing_spec(self, cfg, env, removed):
+        f_live = int(cfg.ssm_heads - removed) * cfg.ssm_head_dim
+        if f_live <= 0:
+            return None
+        return {"module": "ffn", "f_live": f_live, "tokens": env.tokens}
+
+    def shrink_layer(self, cfg, ctx, layer, lcfg, lp):
+        name = f"L{layer}.ssm"
+        if name not in ctx.assignment:
+            return
+        mdb = ctx.db[name]
+        removed = ctx.assignment[name]
+        kept = mdb.kept_structures(removed)          # ssd head ids
+        lcfg.ssm_heads = len(kept)
+        if len(kept) == 0:
+            return
+        rows = _rows_for_groups(kept, cfg.ssm_head_dim)  # within d_inner
+        sp = ctx.layer_params("ssm", layer)
+        lp["ssm"] = {
+            "in_z": ctx.take(sp["in_z"], rows, 1),
+            "in_x": ctx.take(sp["in_x"], rows, 1),
+            "in_bc": ctx.arr(sp["in_bc"]),
+            "in_dt": ctx.take(sp["in_dt"], kept, 1),
+            "conv_x": ctx.take(sp["conv_x"], rows, 1),
+            "conv_x_b": ctx.take(sp["conv_x_b"], rows, 0),
+            "conv_bc": ctx.arr(sp["conv_bc"]),
+            "conv_bc_b": ctx.arr(sp["conv_bc_b"]),
+            "A_log": ctx.take(sp["A_log"], kept, 0),
+            "D": ctx.take(sp["D"], kept, 0),
+            "dt_bias": ctx.take(sp["dt_bias"], kept, 0),
+            "norm": ctx.take(sp["norm"], rows, 0),
+            "out_proj": ctx.take(ctx.out_mat(mdb, removed, sp["out_proj"]),
+                                 rows, 0),
+        }
+        lp["ln1"] = ctx.at_layer("ln1", layer)
+
+
 class FfnUnit(PruneUnit):
     kind = "ffn"
     param_path = ("ffn", "wd")
@@ -222,7 +281,8 @@ class FfnUnit(PruneUnit):
 
 
 # kind -> singleton; iteration order is the within-layer registry order
-UNITS: Dict[str, PruneUnit] = {u.kind: u for u in (AttnUnit(), FfnUnit())}
+UNITS: Dict[str, PruneUnit] = {
+    u.kind: u for u in (AttnUnit(), SsmUnit(), FfnUnit())}
 
 
 def registry(cfg) -> List[PrunableModule]:
@@ -248,12 +308,18 @@ def set_matrix(cfg, params, mod: PrunableModule, w) -> Dict:
     return params
 
 
+def _at_layer(tree, layer: int):
+    if isinstance(tree, dict):
+        return {k: _at_layer(v, layer) for k, v in tree.items()}
+    return tree[layer]
+
+
 def get_capture(captures: Dict, mod: PrunableModule):
     """The calibration inputs (X (N, d_in), valid) of a module, from
-    forward captures stacked over layers."""
-    layer_caps = {g: {k: v[mod.layer] for k, v in sub.items()}
-                  for g, sub in captures.items()}
-    return UNITS[mod.kind].get_capture(layer_caps, mod)
+    forward captures stacked over layers (nested per group, as
+    ``captures["attn"]["wo_in"]``, or at the layer level, as
+    ``captures["ssm_out_in"]``)."""
+    return UNITS[mod.kind].get_capture(_at_layer(captures, mod.layer), mod)
 
 
 def level_grid(mod: PrunableModule, steps: int = 43) -> List[int]:

@@ -42,7 +42,8 @@ def serve_prefill(cfg, params, batch, max_len: Optional[int] = None):
     """Prefill: a full forward that also fills the decode cache. Returns
     (last-position logits (B,1,V), cache).
 
-    ``max_len`` sizes the KV cache; callers that know their generation
+    ``max_len`` sizes the KV cache (an SSM stack's state does not grow
+    with it); callers that know their generation
     length pass ``prompt_len + steps`` (``generate`` does), and the
     default of twice the prompt is only headroom. Decoding past the
     cache's capacity would clamp the write index to the last slot and
@@ -61,15 +62,18 @@ def assemble_prefill_cache(cfg, out, batch: int, s: int, max_len: int):
     device of its logits. Shared by ``serve_prefill`` and the serving
     engine (which prefills at a padded bucket length)."""
     cache = init_cache(cfg, batch, max_len, device=out["logits"].device)
-    pre = out["cache"]  # (L,B,Sc,HKV,D), ring-rolled for sliding windows
-    sc = cache["attn"]["k"].shape[2]
-    if pre["k"].shape[2] >= sc:  # a sliding-window ring already full
-        cache["attn"] = {"k": pre["k"][:, :, :sc].contiguous(),
-                         "v": pre["v"][:, :, :sc].contiguous()}
-    else:
-        n = pre["k"].shape[2]
-        cache["attn"]["k"][:, :, :n] = pre["k"]
-        cache["attn"]["v"][:, :, :n] = pre["v"]
+    if "cache" in out:
+        pre = out["cache"]  # (L,B,Sc,HKV,D), ring-rolled for sliding windows
+        sc = cache["attn"]["k"].shape[2]
+        if pre["k"].shape[2] >= sc:  # a sliding-window ring already full
+            cache["attn"] = {"k": pre["k"][:, :, :sc].contiguous(),
+                             "v": pre["v"][:, :, :sc].contiguous()}
+        else:
+            n = pre["k"].shape[2]
+            cache["attn"]["k"][:, :, :n] = pre["k"]
+            cache["attn"]["v"][:, :, :n] = pre["v"]
+    if "cache_ssm" in out:  # the SSD state and conv tails after the prompt
+        cache["ssm"] = out["cache_ssm"]
     cache["pos"].fill_(s)
     return cache
 

@@ -4,8 +4,10 @@ After a ZipLM shrink, layers have different head counts and FFN widths
 (and some modules are gone), so the stacked per-layer leaves no longer
 apply. This module runs per-layer parameter dicts in a Python loop over
 the same primitive ops: this is where the structural speedup shows up
-(smaller matmuls, skipped modules). It runs the attention and FFN
-branches; MoE and SSM layers raise (ROADMAP Queue 1 item 10).
+(smaller matmuls, skipped modules). It runs the attention, FFN and SSD
+branches (an SSD layer through ``models.ssm.ssm_apply`` at its pruned
+width); MoE layers raise (ROADMAP Queue 1 item 10). The decode runtime
+covers attention+FFN decoders only, as the reference's does.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 from . import attention as attn_mod
 from .ffn import ffn_apply
 from .layers import apply_norm, compute_dtype, embed_tokens, unembed
+from .ssm import ssm_apply
 from .transformer import init_cache
 
 
@@ -24,7 +27,7 @@ from .transformer import init_cache
 class PrunedLayer:
     kv_groups: int = 0        # attention KV groups remaining (0 = dropped)
     d_ff: int = 0             # FFN intermediate remaining (0 = dropped)
-    ssm_heads: int = 0        # SSM heads remaining (not ported)
+    ssm_heads: int = 0        # SSD heads remaining (0 = dropped)
     expert_ff: List[int] = field(default_factory=list)  # MoE (not ported)
     params: Dict[str, Any] = field(default_factory=dict)
 
@@ -59,10 +62,9 @@ def _vcfg(cfg, lcfg: PrunedLayer):
 
 
 def _check_layer(lcfg: PrunedLayer) -> None:
-    if lcfg.expert_ff or lcfg.ssm_heads:
+    if lcfg.expert_ff:
         raise NotImplementedError(
-            "pruned MoE and SSM layers are not ported yet (ROADMAP Queue 1 "
-            "item 10)")
+            "pruned MoE layers are not ported yet (ROADMAP Queue 1 item 10)")
 
 
 def _has_attn(lcfg: PrunedLayer) -> bool:
@@ -94,6 +96,9 @@ def forward_pruned(pm: PrunedModel, tokens) -> torch.Tensor:
             a, _ = attn_mod.self_attention(_vcfg(cfg, lcfg),
                                            lcfg.params["attn"], h)
             x = x + a
+        if lcfg.ssm_heads > 0 and "ssm" in lcfg.params:
+            h = apply_norm(cfg, lcfg.params["ln1"], x)
+            x = x + ssm_apply(cfg, lcfg.params["ssm"], h)
         x = _ffn_block(cfg, lcfg, x)
     return _head(pm, x)
 

@@ -1,11 +1,11 @@
 """Transformer stack: init, full-sequence forward (train / prefill) and
 single-token decode for dense self-attention models (GPT-2/BERT/llama-style
-blocks).
+blocks) and Mamba-2 (SSD) stacks.
 
 Per-layer weights are stacked along a leading layer axis, as in the JAX
 package; the forward and decode are Python loops over layers where the
-reference scans. MoE, SSM, cross-attention and frontends are not ported
-yet and are rejected up front.
+reference scans. MoE, hybrid, cross-attention and frontends are not
+ported yet and are rejected up front.
 """
 from __future__ import annotations
 
@@ -16,23 +16,31 @@ import torch
 from ..runtime.device import DeviceLike, resolve_device
 from . import attention as attn_mod
 from . import ffn as ffn_mod
+from . import ssm as ssm_mod
 from .layers import (apply_norm, compute_dtype, dense_init, embed_tokens,
                      embedding_init, norm_init, unembed)
 
 
 def check_supported(cfg) -> None:
+    ssm = cfg.family == "ssm"
     unsupported = {
-        "num_experts": cfg.num_experts, "ssm_state": cfg.ssm_state,
+        "num_experts": cfg.num_experts,
+        "ssm_state outside the ssm family": cfg.ssm_state and not ssm,
+        "family='ssm' without ssm_state": ssm and not cfg.ssm_state,
         "hybrid": cfg.hybrid, "encoder_decoder": cfg.encoder_decoder,
         "cross_attn_every": cfg.cross_attn_every,
-        "attention='none'": cfg.attention == "none",
+        "attention='none'": cfg.attention == "none" and not ssm,
         "frontend": cfg.frontend != "none",
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense self-attention stacks only "
-            f"(not ported yet: {', '.join(bad)})")
+            f"{cfg.name}: the port runs dense self-attention and Mamba-2 "
+            f"stacks only (not ported yet: {', '.join(bad)})")
+
+
+def block_kind(cfg) -> str:
+    return "ssm" if cfg.family == "ssm" else "self"
 
 
 def model_init(cfg, generator: Optional[torch.Generator] = None,
@@ -44,14 +52,18 @@ def model_init(cfg, generator: Optional[torch.Generator] = None,
     dev = resolve_device(device)
     g = generator if generator is not None else torch.Generator().manual_seed(0)
     L = cfg.num_layers
+    embed = embedding_init(cfg, g)
+    if block_kind(cfg) == "ssm":
+        layers = {"ln1": norm_init(cfg, L),
+                  "ssm": ssm_mod.ssm_init(cfg, g, L)}
+    else:
+        layers = {"ln1": norm_init(cfg, L),
+                  "attn": attn_mod.attention_init(cfg, g, L),
+                  "ln2": norm_init(cfg, L),
+                  "ffn": ffn_mod.ffn_init(cfg, g, L)}
     params: Dict[str, Any] = {
-        "embed": embedding_init(cfg, g),
-        "layers": {
-            "ln1": norm_init(cfg, L),
-            "attn": attn_mod.attention_init(cfg, g, L),
-            "ln2": norm_init(cfg, L),
-            "ffn": ffn_mod.ffn_init(cfg, g, L),
-        },
+        "embed": embed,
+        "layers": layers,
         "final_norm": norm_init(cfg),
         "head": ({} if cfg.tie_embeddings else
                  {"w": dense_init((cfg.vocab_size, cfg.d_model), g,
@@ -85,39 +97,63 @@ def _self_block(cfg, lp, x, *, build_cache: bool, capture: bool):
     return x, cache_kv, {"attn": cap_attn, "ffn": cap_ffn}
 
 
+def _ssm_block(cfg, lp, x, *, build_cache: bool, capture: bool):
+    """One Mamba-2 block. Returns (x, cache_ssm, captures); the capture
+    ``ssm_out_in`` sits at the layer level, as in the reference."""
+    caps: Dict[str, Any] = {}
+    h = apply_norm(cfg, lp["ln1"], x)
+    y = ssm_mod.ssm_apply(cfg, lp["ssm"], h,
+                          capture=caps if capture else None,
+                          return_cache=build_cache)
+    cache = None
+    if build_cache:
+        y, cache = y
+    return x + y, cache, caps
+
+
+def _stack(trees):
+    """Per-layer trees (nested dicts of tensors) -> one tree of stacked
+    tensors with a leading layer axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
 def forward(cfg, params, tokens: torch.Tensor, *, mode: str = "train",
             capture: bool = False):
     """Full-sequence forward.
 
     mode: "train" (logits over all positions) or "prefill" (also returns
-    the stacked KV cache ``cache = {k, v}`` of shape (L, B, S, HKV, D),
-    ring-rolled for sliding windows). Returns dict(logits (B,S,V) fp32,
-    aux, cache?, and with ``capture`` the per-layer module inputs stacked
-    as ``captures[group][key]`` with a leading layer axis).
+    the decode cache: for attention stacks ``cache = {k, v}`` of shape
+    (L, B, S, HKV, D), ring-rolled for sliding windows; for SSM stacks
+    ``cache_ssm = {state, conv_x, conv_bc}`` stacked over layers).
+    Returns dict(logits (B,S,V) fp32, aux, the cache, and with
+    ``capture`` the per-layer module inputs stacked with a leading layer
+    axis: ``captures[group][key]`` for attention stacks,
+    ``captures["ssm_out_in"]`` for SSM stacks).
     """
     check_supported(cfg)
     build_cache = mode == "prefill"
     dev = params["embed"]["table"].device
     tokens = tokens.to(dev)
     x = embed_tokens(cfg, params["embed"], tokens)
-    caps, ks, vs = [], [], []
+    block = _ssm_block if block_kind(cfg) == "ssm" else _self_block
+    caps, caches = [], []
     for i in range(cfg.num_layers):
-        x, kv, c = _self_block(cfg, _layer(params["layers"], i), x,
-                               build_cache=build_cache, capture=capture)
+        x, c_layer, c = block(cfg, _layer(params["layers"], i), x,
+                              build_cache=build_cache, capture=capture)
         caps.append(c)
-        if build_cache:
-            ks.append(kv[0])
-            vs.append(kv[1])
+        caches.append(c_layer)
     x = apply_norm(cfg, params["final_norm"], x)
     out = {"logits": unembed(cfg, params["embed"], params.get("head", {}), x),
            "aux": torch.zeros((), device=dev)}
     if capture:
-        out["captures"] = {
-            grp: {key: torch.stack([c[grp][key] for c in caps])
-                  for key in caps[0][grp]}
-            for grp in ("attn", "ffn")}
-    if build_cache:
-        out["cache"] = _ring_cache(cfg, torch.stack(ks), torch.stack(vs))
+        out["captures"] = _stack(caps)
+    if build_cache and block_kind(cfg) == "ssm":
+        out["cache_ssm"] = _stack(caches)
+    elif build_cache:
+        out["cache"] = _ring_cache(cfg, torch.stack([c[0] for c in caches]),
+                                   torch.stack([c[1] for c in caches]))
     return out
 
 
@@ -149,14 +185,19 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=None, *, kv_heads=None,
     is the stacked (L, B, Sc, HKV, D) form ``decode_step`` consumes.
 
     ``per_slot=True`` gives a per-slot position vector ``pos: (B,)``
-    (continuous batching) instead of the scalar lockstep position.
+    (continuous batching) instead of the scalar lockstep position. An SSM
+    stack's cache is ``ssm = {state, conv_x, conv_bc}`` stacked over
+    layers instead of k/v buffers.
     """
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or compute_dtype(cfg)
     cache: Dict[str, Any] = {"pos": torch.zeros((batch,) if per_slot else (),
                                                 dtype=torch.long, device=dev)}
-    if kv_heads is not None:
+    if block_kind(cfg) == "ssm":
+        cache["ssm"] = ssm_mod.init_ssm_cache(cfg, batch, cfg.num_layers,
+                                              dtype, dev)
+    elif kv_heads is not None:
         if len(kv_heads) != cfg.num_layers:
             raise ValueError(f"kv_heads has {len(kv_heads)} entries for "
                              f"{cfg.num_layers} layers")
@@ -180,8 +221,8 @@ def decode_step(cfg, params, cache, tokens):
     ``cache["pos"]`` is a 0-d tensor (lockstep batch) or a (B,) vector of
     per-slot positions (continuous batching): each slot then embeds,
     RoPE-rotates, writes and masks at its own absolute position. The
-    cache's k/v tensors are updated in place; the new cache holds them
-    and ``pos + 1``.
+    cache's k/v (or SSM state and conv) tensors are updated in place; the
+    new cache holds them and ``pos + 1``.
     """
     pos = cache["pos"]
     positions = None
@@ -190,10 +231,16 @@ def decode_step(cfg, params, cache, tokens):
     dev = params["embed"]["table"].device
     x = embed_tokens(cfg, params["embed"], tokens.to(dev),
                      positions=positions)
+    ssm = block_kind(cfg) == "ssm"
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
-        layer_cache = {"k": cache["attn"]["k"][i], "v": cache["attn"]["v"][i]}
         h = apply_norm(cfg, lp["ln1"], x)
+        if ssm:
+            y, _ = ssm_mod.ssm_decode_step(
+                cfg, lp["ssm"], h, {k: v[i] for k, v in cache["ssm"].items()})
+            x = x + y
+            continue
+        layer_cache = {"k": cache["attn"]["k"][i], "v": cache["attn"]["v"][i]}
         a, _ = attn_mod.self_attention(cfg, lp["attn"], h, cache=layer_cache,
                                        cache_pos=pos)
         x = x + a

@@ -122,6 +122,32 @@ def ffn_time(cfg, env: InferenceEnv, f_live: int,
     return t
 
 
+def ssm_time(cfg, env: InferenceEnv, heads: int) -> float:
+    """Mamba-2 block with ``heads`` of its SSD heads remaining: the input
+    and output projections, and the recurrent state (decode) or the
+    chunked scan (prefill/train)."""
+    if heads == 0:
+        return 0.0
+    hw = _hw(env)
+    d = cfg.d_model
+    hp = cfg.ssm_head_dim
+    di = heads * hp
+    n = cfg.ssm_state
+    t_tok = env.tokens
+    t = matmul_time(env, t_tok, d, math.ceil((2 * di + 2 * n + heads) / env.tp))
+    t += matmul_time(env, t_tok, math.ceil(di / env.tp), d)
+    if env.mode == "decode":
+        state_bytes = env.batch * heads * hp * n * 4 * 2
+        t += state_bytes / hw.hbm_bw + hw.op_overhead
+    else:
+        q = cfg.ssm_chunk
+        flops = 2.0 * t_tok * q * (heads / env.tp) * (hp + n) \
+            + 4.0 * t_tok * (heads / env.tp) * hp * n
+        t += flops / hw.peak_flops + 4 * hw.op_overhead
+    t += allreduce_time(env, t_tok * d * 2)
+    return t
+
+
 def base_time(cfg, env: InferenceEnv) -> float:
     """Unprunable remainder: embeddings, norms, logits head."""
     hw = _hw(env)

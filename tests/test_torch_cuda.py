@@ -8,15 +8,27 @@ PyTorch is installed::
 TF32 is off, so the plain versions' products are full fp32. Tolerances:
 hessian_accum 1e-4·√N (the reference's accumulator tolerance; bf16 input
 converts exactly to fp32 on both sides), obs_downdate 1e-5, flash
-attention 2e-5 fp32 and 2e-2 bf16 (the reference's).
+attention 2e-5 fp32 and 2e-2 bf16 (the reference's); the SSD intra-chunk
+pass 1e-4 in fp32 (fp32 sums of up to a chunk of terms in another order)
+and 2e-2 of the output's scale with bf16 B and C (the plain version
+rounds the scores to bf16, as the reference's model twin does, the kernel
+keeps them fp32: a relative 2^-9 per score, summed over up to a chunk of
+terms), and the
+chunked scan 2e-3 against the token-by-token recurrence (the reference's
+SSD tolerance).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import MAMBA2_2P7B
 from repro_torch.kernels import (flash_attention, flash_attention_plain,
                                  hessian_accum, hessian_accum_plain,
-                                 obs_downdate, obs_downdate_plain)
+                                 obs_downdate, obs_downdate_plain,
+                                 ssd_intra_chunk, ssd_intra_chunk_plain)
+from repro_torch.kernels.ssd_scan import ssd_chunked
+from repro_torch.models import forward, generate, model_init
+from repro_torch.models.transformer import tree_to
 
 
 @pytest.fixture
@@ -163,3 +175,118 @@ def test_flash_attention_raises_on_inputs_it_does_not_take(cuda_device):
         flash_attention(q[:, :, :3].contiguous(), kv, kv)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         flash_attention(q.half(), kv.half(), kv.half())
+
+
+# b, nc, q, h, p, n: the reference's SSD_CASES cut into chunks, Mamba-2
+# 2.7B's calibration widths (one batch row), a chunk of 256, a ragged
+# chunk with p = 128, and the largest chunk the kernel takes
+SSD_CASES = [(2, 2, 32, 4, 32, 16), (1, 3, 32, 8, 16, 8),
+             (2, 4, 16, 2, 64, 32), (1, 2, 64, 6, 32, 16),
+             (1, 4, 128, 80, 64, 128), (1, 1, 256, 8, 64, 128),
+             (2, 1, 100, 3, 128, 40), (1, 1, 512, 2, 16, 8)]
+
+
+def _intra_chunk_inputs(b, nc, q, h, p, n, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xdt = torch.randn((b, nc, q, h, p), device=dev, generator=g) * 0.5
+    dA = -torch.rand((b, nc, q, h), device=dev, generator=g) * 0.3
+    dacs = torch.cumsum(dA, dim=2)
+    B, C = (torch.randn((b, nc, q, n), device=dev, generator=g) * 0.5
+            for _ in range(2))
+    return xdt, dacs, B, C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_intra_chunk_kernel_matches_plain(cuda_device, case, dtype):
+    xdt, dacs, B, C = _intra_chunk_inputs(*case, cuda_device, sum(case))
+    B, C = B.to(dtype), C.to(dtype)
+    before = ssd_intra_chunk.launches
+    got = ssd_intra_chunk(xdt, dacs, B, C)
+    torch.cuda.synchronize()
+    assert ssd_intra_chunk.launches == before + 1
+    want = ssd_intra_chunk_plain(xdt, dacs, B, C)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+        else:
+            torch.testing.assert_close(g, w, atol=2e-2 * float(w.abs().max()),
+                                       rtol=0)
+
+
+def ssd_recurrence(x, dt, A, B, C, initial_state=None):
+    """Token-by-token SSD recurrence (the reference's ``ref.ssd_ref``)."""
+    b, s, h, p = x.shape
+    state = (initial_state if initial_state is not None else
+             torch.zeros((b, h, p, B.shape[-1]), device=x.device))
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dt[:, t] * A)
+        state = state * decay[..., None, None] + torch.einsum(
+            "bh,bn,bhp->bhpn", dt[:, t], B[:, t].float(), x[:, t].float())
+        ys.append(torch.einsum("bn,bhpn->bhp", C[:, t].float(), state))
+    return torch.stack(ys, 1).to(x.dtype), state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [(2, 64, 4, 32, 16, 32),
+                                             (2, 50, 2, 64, 32, 16),
+                                             (1, 300, 8, 64, 128, 128)])
+def test_ssd_chunked_on_the_card_matches_the_recurrence(cuda_device, b, s, h,
+                                                        p, n, chunk):
+    g = torch.Generator(device=cuda_device).manual_seed(s)
+    x = torch.randn((b, s, h, p), device=cuda_device, generator=g) * 0.5
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), device=cuda_device, generator=g))
+    A = -torch.exp(torch.randn((h,), device=cuda_device, generator=g) * 0.3)
+    B, C = (torch.randn((b, s, n), device=cuda_device, generator=g) * 0.5
+            for _ in range(2))
+    init = torch.randn((b, h, p, n), device=cuda_device, generator=g) * 0.1
+    for state in (None, init):
+        before = ssd_intra_chunk.launches
+        y, st = ssd_chunked(x, dt, A, B, C, chunk, initial_state=state)
+        torch.cuda.synchronize()
+        assert ssd_intra_chunk.launches == before + 1
+        y_w, st_w = ssd_recurrence(x, dt, A, B, C, state)
+        torch.testing.assert_close(y, y_w, atol=2e-3, rtol=2e-3)
+        torch.testing.assert_close(st, st_w, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+def test_ssd_intra_chunk_raises_on_inputs_it_does_not_take(cuda_device):
+    xdt, dacs, B, C = _intra_chunk_inputs(1, 2, 32, 4, 32, 16, cuda_device, 0)
+    with pytest.raises(ValueError, match="head dim"):
+        ssd_intra_chunk(xdt[..., :24].contiguous(), dacs, B, C)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ssd_intra_chunk(xdt, dacs, B.double(), C.double())
+    with pytest.raises(ValueError, match="xdt and dacs must be float32"):
+        ssd_intra_chunk(xdt.bfloat16(), dacs, B, C)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_intra_chunk(xdt, dacs, B.transpose(2, 3).contiguous()
+                        .transpose(2, 3), C)
+    big = _intra_chunk_inputs(1, 1, 520, 2, 16, 8, cuda_device, 0)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_intra_chunk(*big)
+
+
+@pytest.mark.cuda
+def test_mamba2_forward_and_generate_on_the_card_match_the_cpu(cuda_device):
+    """A 2-layer Mamba-2 at the reference's smoke widths, fp32: the card
+    (the SSD kernel) against the CPU (its plain version) on the same
+    weights."""
+    cfg = MAMBA2_2P7B.replace(num_layers=2, d_model=128, ssm_state=16,
+                              ssm_head_dim=32, ssm_chunk=32, vocab_size=512,
+                              dtype="float32")
+    p_cpu = model_init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    p_gpu = tree_to(p_cpu, cuda_device)
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 512, (2, 70)))
+    before = ssd_intra_chunk.launches
+    got = forward(cfg, p_gpu, tokens.to(cuda_device))["logits"].cpu()
+    assert ssd_intra_chunk.launches == before + cfg.num_layers
+    want = forward(cfg, p_cpu, tokens)["logits"]
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert torch.equal(generate(cfg, p_gpu, tokens.to(cuda_device), 8).cpu(),
+                       generate(cfg, p_cpu, tokens, 8))

@@ -6,7 +6,7 @@ import pathlib
 import pytest
 import torch
 
-from repro_torch.configs import GPT2_SMALL
+from repro_torch.configs import GPT2_SMALL, MAMBA2_2P7B
 from repro_torch.core.database import SnapshotCache, build_database
 from repro_torch.core.hessian import collect_hessians
 from repro_torch.core.latency import build_table
@@ -41,14 +41,22 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 def test_port_files_are_found():
     names = {p.name for p in PORT_FILES}
     assert {"oneshot.py", "obs_downdate.py", "flash_attention.py",
-            "shrink.py", "engine.py", "chip_smoke.py"} <= names
+            "shrink.py", "engine.py", "ssm.py", "ssd_scan.py",
+            "mamba2_2p7b.py", "chip_smoke.py"} <= names
 
 
 ENV = InferenceEnv(batch=2, seq=8, hw=None)
 TINY = GPT2_SMALL.replace(num_layers=1, d_model=32, d_ff=64, num_heads=2,
                           num_kv_heads=2, vocab_size=64)
+MAMBA = MAMBA2_2P7B.replace(num_layers=1, d_model=32, ssm_state=8,
+                            ssm_head_dim=16, ssm_chunk=8, vocab_size=64)
 ENTRY_POINTS = {
     "model_init": lambda: model_init(TINY),
+    "model_init[mamba2]": lambda: model_init(MAMBA),
+    "oneshot_prune[mamba2]": lambda: oneshot_prune(MAMBA, {}, [], ENV,
+                                                   [2.0]),
+    "shrink[mamba2]": lambda: shrink(MAMBA, {"layers": {}}, {}, {}),
+    "init_cache[mamba2]": lambda: init_cache(MAMBA, 1, 8),
     "params_from_numpy": lambda: params_from_numpy({}),
     "collect_hessians": lambda: collect_hessians(TINY, {}, [{}]),
     "build_database": lambda: build_database(TINY, {}, {}),
