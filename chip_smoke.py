@@ -9,10 +9,13 @@ Phases (any failure exits non-zero and prints no result):
    (one ``nvcc`` per source, all started together);
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (plus ragged, ``d_live``, bf16, GQA,
-   window, ``q_offset`` and SSD chunk-size cases, and the whole chunked
-   SSD scan against the token-by-token recurrence), and time kernel,
-   plain version and, where one exists, the single PyTorch call that
-   computes the same function;
+   window, ``q_offset``, rows without keys and SSD chunk-size cases, and
+   the whole chunked SSD scan against the token-by-token recurrence), and
+   time kernel, plain version and, where one exists, the single PyTorch
+   call that computes the same function, each by CUDA events around
+   eager calls (flash attention also at the serving buckets 128-512 and
+   at 8 prompts of 1024, and by CUDA graph replay as well: its kernel
+   takes tens of microseconds, less than its wrapper's host path);
 3. check the slices on small models: the card's run (kernels) against the
    CPU run (plain versions) on the same weights and Hessians, a 2-layer
    model's prefill logits and served tokens, and a 2-layer Mamba-2's
@@ -114,6 +117,33 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds per call with the host out of the way: ``reps``
+    calls captured in one CUDA graph, replayed between CUDA events. For a
+    kernel of tens of microseconds, where an eager loop would time the
+    host's launch path instead."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
 
 
 def bound_ms(bytes_: float, ops: float, peak_ops: float):
@@ -229,8 +259,10 @@ def check_kernels(torch, kernels):
 
 # b, sq, sk, hq, hkv, d, causal, window, q_offset (None: sk - sq): the
 # reference's FLASH_CASES (tests/test_kernels.py), then GPT-2 small's
-# serving prefills (the last is the timed one's shape), and GQA with a
-# window and queries inside the keys
+# serving prefills (every bucket, 8-1024 tokens, and 8 prompts of 1024),
+# GQA with a window and queries inside the keys, and the cases a tiled
+# rewrite is likeliest to break: rows without keys (causal, Sq > Sk), a
+# first visited key tile wholly masked for later rows, one query
 FLASH_CASES = [(2, 128, 128, 4, 4, 64, True, 0, None),
                (1, 256, 256, 8, 2, 64, True, 0, None),
                (2, 128, 128, 4, 1, 128, True, 64, None),
@@ -238,8 +270,16 @@ FLASH_CASES = [(2, 128, 128, 4, 4, 64, True, 0, None),
                (1, 128, 128, 4, 4, 64, False, 0, None),
                (2, 130, 130, 2, 2, 32, True, 0, None)]
 FLASH_SERVING = [(1, s, s, 12, 12, 64, True, 0, None)
-                 for s in (128, 512, 1024)]
+                 for s in (8, 16, 32, 64, 128, 256, 512, 1024)]
+FLASH_BATCHED = (8, 1024, 1024, 12, 12, 64, True, 0, None)
 FLASH_GQA = (2, 100, 300, 8, 2, 64, True, 96, 150)
+FLASH_EDGE = [(2, 200, 130, 4, 2, 16, True, 0, None),
+              (2, 128, 500, 4, 2, 64, True, 20, 300),
+              (2, 1, 300, 8, 2, 64, True, 0, 299)]
+# timed in bf16 causal beside scaled_dot_product_attention: buckets 128,
+# 256 and 512, the batched shape, and last the JSON line's shape
+FLASH_TIMED = [FLASH_SERVING[4], FLASH_SERVING[5], FLASH_SERVING[6],
+               FLASH_BATCHED, FLASH_SERVING[7]]
 
 
 def attended_pairs(sq, sk, causal, window, q_offset):
@@ -257,13 +297,15 @@ def attended_pairs(sq, sk, causal, window, q_offset):
 
 def check_flash(torch, kernels, g):
     """Phase 2, flash attention: the reference's cases in fp32 (tolerance
-    2e-5) and bf16 (2e-2), the serving shapes and a GQA + window +
-    q_offset case in bf16; timed at GPT-2 small's longest prefill."""
+    2e-5) and bf16 (2e-2), the serving shapes, a GQA + window + q_offset
+    case and the edge cases in bf16; timed in bf16 causal at GPT-2 small's
+    prefill buckets 128-1024 and at 8 prompts of 1024, beside
+    ``scaled_dot_product_attention`` and the bound."""
     from repro_torch.kernels import flash_attention_plain
     dev = torch.device("cuda")
     cases = ([(c, torch.float32) for c in FLASH_CASES]
              + [(c, torch.bfloat16) for c in FLASH_CASES + FLASH_SERVING
-                + [FLASH_GQA]])
+                + [FLASH_BATCHED, FLASH_GQA] + FLASH_EDGE])
     for case, dt in cases:
         b, sq, sk, hq, hkv, d, causal, window, q_off = case
         q, k, v = (torch.randn(shape, device=dev, generator=g).to(dt)
@@ -281,31 +323,68 @@ def check_flash(torch, kernels, g):
               f"(atol {tol:g} + rtol {tol:g}*|plain|) "
               f"{'ok' if ok else 'MISMATCH'}")
         check(ok, f"flash_attention disagrees at {case} {dt}")
-        if case == FLASH_SERVING[-1]:
-            timed = (q, k, v, err)
-    # the timed case: the longest serving prefill, (1, 1024, 12, 12, 64)
-    q, k, v, err = timed
-    b, sq, sk, hq, hkv, d, causal, window, q_off = FLASH_SERVING[-1]
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms = time_ms(lambda: kernels.flash_attention(q, k, v, causal=True))
-    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=True))
-    lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
-    pairs = attended_pairs(sq, sk, causal, window, sk - sq)
-    ops = 4.0 * b * hq * d * pairs
-    nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + q.numel())
-    bnd, by = bound_ms(nbytes, ops, PEAK_BF16)
-    print(f"flash_attention {(b, sq, sk, hq, hkv, d)} bf16 causal: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {bnd:.4f} ms "
-          f"({by}; {ops / 1e9:.3f} GFLOP over {PEAK_BF16 / 1e12:.0f} "
-          f"TFLOP/s, {nbytes / 1e6:.2f} MB over "
-          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {ops / ms / 1e9:.1f} TFLOP/s")
+        del got, want
+    # the JSON line's shape is the last timed one, the longest serving
+    # prefill
+    row = time_flash(torch, kernels.flash_attention, flash_attention_plain,
+                     g, FLASH_TIMED)[-1]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:76",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms}
+            **{key: row[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "device_ms", "library_device_ms")}}
+
+
+def time_flash(torch, flash, plain, g, cases):
+    """Time ``flash`` in bf16 causal at each of ``cases`` beside ``plain``
+    (its plain version) and ``scaled_dot_product_attention``; returns one
+    row per case. Each case is first checked against ``plain`` at 2e-2.
+    ``ms``, ``plain_ms`` and ``library_ms`` are ``time_ms`` (CUDA events
+    around 20 eager calls, the host's launch path included: the yardstick
+    of every kernel in the JSON line); ``device_ms`` and
+    ``library_device_ms`` are ``graph_ms`` (the same calls replayed from a
+    CUDA graph: the device's time alone, which for a kernel of tens of
+    microseconds is less than its wrapper's host path)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for b, sq, sk, hq, hkv, d, causal, window, q_off in cases:
+        q, k, v = (torch.randn(shape, device="cuda", generator=g).bfloat16()
+                   for shape in ((b, sq, hq, d), (b, sk, hkv, d),
+                                 (b, sk, hkv, d)))
+        got, want = flash(q, k, v, causal=True), plain(q, k, v, causal=True)
+        err = float((got.float() - want.float()).abs().max())
+        check(bool(torch.allclose(got.float(), want.float(), atol=2e-2,
+                                  rtol=2e-2)),
+              f"flash_attention disagrees at {(b, sq, sk, hq, hkv, d)}")
+        del got, want
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        calls = {"": lambda: flash(q, k, v, causal=True),
+                 "library_": lambda: sdpa(qt, kt, vt, is_causal=True)}
+        row = {"shape": [b, sq, sk, hq, hkv, d], "max_abs_err": err}
+        for pre, fn in calls.items():
+            row[pre + "ms"] = time_ms(fn)
+            row[pre + "device_ms"] = graph_ms(fn)
+        row["plain_ms"] = time_ms(lambda: plain(q, k, v, causal=True))
+        ops = 4.0 * b * hq * d * attended_pairs(sq, sk, causal, window,
+                                                sk - sq)
+        nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops, PEAK_BF16)
+        row["device_tflops"] = ops / row["device_ms"] / 1e9
+        rows.append(row)
+        print(f"flash_attention {(b, sq, sk, hq, hkv, d)} bf16 causal: "
+              f"kernel {row['ms']:.4f} ms eager, {row['device_ms']:.4f} ms "
+              f"device (graph); scaled_dot_product_attention "
+              f"{row['library_ms']:.4f} ms eager, "
+              f"{row['library_device_ms']:.4f} ms device; plain "
+              f"{row['plain_ms']:.4f} ms eager; bound {row['bound_ms']:.4f} "
+              f"ms ({row['bound_by']}; {ops / 1e9:.3f} GFLOP over "
+              f"{PEAK_BF16 / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.2f} MB over "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); "
+              f"{row['device_tflops']:.1f} TFLOP/s on the device, "
+              f"{row['device_ms'] / row['library_device_ms']:.2f}x SDPA's "
+              f"device time")
+    return rows
 
 
 # b, s, h, p, n, chunk: the reference's SSD_CASES (tests/test_kernels.py;
@@ -1109,7 +1188,9 @@ def main() -> int:
         rec["launches"] = launches[name]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
+    # flash attention's device-only times ride beside its eager ones
+    extra = ["device_ms", "library_device_ms"]
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in records.values()]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

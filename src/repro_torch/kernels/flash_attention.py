@@ -4,9 +4,10 @@ a ``q_offset`` (queries aligned to the end of the keys) and GQA.
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py``
 (``flash_attention_kernel``), whose wrapper is ``kernels/ops.py``
 ``flash_attention`` and whose oracle is ``kernels/ref.py``
-``attention_ref``. The CUDA kernel is ``csrc/flash_attention.cu``; its
-header says what bounds it on the card and what its design does about
-that.
+``attention_ref``. The CUDA source is ``csrc/flash_attention.cu``, with
+one kernel per type: bf16 on the tensor cores, fp32 on the CUDA cores in
+exact fp32. Its header says what bounds them on the card and what their
+designs do about that.
 
 ``flash_attention`` takes the reference wrapper's layout, q (B, Sq, HQ, D)
 and k/v (B, Sk, HKV, D), and returns (B, Sq, HQ, D) in q's type. It
@@ -83,9 +84,12 @@ def _check(q, k, v, window):
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: q's head dim must be one of "
                          f"{HEAD_DIMS}, got {d}")
-    if b * hq > 65535:  # one grid row per (batch, query head)
-        raise ValueError(f"flash_attention: q's B * HQ must be at most "
-                         f"65535, got {b * hq}")
+    # the fp32 kernel's grid has one row per (batch, query head), at most
+    # 65535; the bf16 kernel's grid is 1-D, and its launch refuses more
+    # than 2^31 - 1 blocks (query tiles x B x HQ)
+    if q.dtype == torch.float32 and b * hq > 65535:
+        raise ValueError(f"flash_attention: an fp32 q's B * HQ must be at "
+                         f"most 65535, got {b * hq}")
     for name, t in (("k", k), ("v", v)):
         if t.ndim != 4 or t.shape[0] != b or t.shape[3] != d:
             raise ValueError(f"flash_attention: {name} must be (B={b}, Sk, "
@@ -105,6 +109,10 @@ def _check(q, k, v, window):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous "
                              "(row-major)")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: a bf16 {name} must start on "
+                             "a 16-byte boundary (the kernel copies 16 "
+                             "bytes at a time)")
     if window < 0:
         raise ValueError(f"flash_attention: window must be >= 0, got "
                          f"{window}")

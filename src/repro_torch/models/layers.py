@@ -82,11 +82,19 @@ def embedding_init(cfg, generator: torch.Generator):
 def embed_tokens(cfg, p, tokens: torch.Tensor, positions=None
                  ) -> torch.Tensor:
     """Token (+ learned position) embeddings; ``positions`` defaults to
-    ``0..S-1`` (decode passes each row's absolute position)."""
+    ``0..S-1`` (decode passes each row's absolute position). A position
+    past the table reads NaN, as the reference's ``jnp.take`` does: an
+    idle serving slot is decoded with the others and its position runs
+    on, and its row is never read."""
     x = p["table"][tokens].to(compute_dtype(cfg))
     if cfg.pos_emb == "learned":
-        pe = (p["pos"][:tokens.shape[-1]] if positions is None
-              else p["pos"][positions])
+        table = p["pos"]
+        if positions is None:
+            pe = table[:tokens.shape[-1]]
+        else:
+            n = table.shape[0]
+            pe = torch.where((positions < n)[..., None],
+                             table[positions.clamp(max=n - 1)], float("nan"))
         x = x + pe.to(x.dtype)
     return x
 

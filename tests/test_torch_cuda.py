@@ -126,7 +126,12 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda_device):
 
 # b, sq, sk, hq, hkv, d, causal, window, q_offset (None: sk - sq): the
 # reference's FLASH_CASES, GPT-2 small's serving prefills, gpt2-tiny's
-# head dim, and GQA with a window and queries inside the keys
+# head dim, and GQA with a window and queries inside the keys; then the
+# rest of the serving buckets (8-256), D = 128 with GQA 8:2 and a window,
+# D = 16 and 32 with ragged lengths, one query against 300 keys, fewer
+# than 16 keys, non-causal ragged, causal with Sq > Sk (rows without keys,
+# no band skip), and a window whose first visited key tile is wholly
+# masked for the tile's later rows (q_offset 300, window 20)
 FLASH_CASES = [(2, 128, 128, 4, 4, 64, True, 0, None),
                (1, 256, 256, 8, 2, 64, True, 0, None),
                (2, 128, 128, 4, 1, 128, True, 64, None),
@@ -136,7 +141,16 @@ FLASH_CASES = [(2, 128, 128, 4, 4, 64, True, 0, None),
                (1, 512, 512, 12, 12, 64, True, 0, None),
                (1, 1024, 1024, 12, 12, 64, True, 0, None),
                (3, 77, 77, 4, 4, 16, True, 0, None),
-               (2, 100, 300, 8, 2, 64, True, 96, 150)]
+               (2, 100, 300, 8, 2, 64, True, 96, 150)] + [
+    (1, s, s, 12, 12, 64, True, 0, None) for s in (8, 16, 32, 64, 128, 256)
+] + [(2, 200, 200, 8, 2, 128, True, 48, None),
+     (2, 77, 130, 4, 2, 16, True, 0, None),
+     (2, 130, 77, 4, 4, 32, True, 24, 90),
+     (2, 1, 300, 8, 2, 64, True, 0, 299),
+     (2, 9, 12, 4, 2, 64, True, 0, None),
+     (2, 77, 130, 4, 4, 32, False, 0, None),
+     (2, 200, 130, 4, 2, 16, True, 0, None),
+     (2, 128, 500, 4, 2, 64, True, 20, 300)]
 
 
 @pytest.mark.cuda
@@ -160,6 +174,31 @@ def test_flash_attention_kernel_matches_plain(cuda_device, case, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_rows_without_keys_take_the_mean_of_all_values(
+        cuda_device, dtype):
+    """Causal with Sq > Sk: query rows 0..Sq-Sk-1 sit before every key, so
+    every score of theirs is NEG_INF and the oracle (and the plain
+    version) gives them the mean of the Sk values, not of a padded count."""
+    b, sq, sk, hq, hkv, d = 2, 200, 130, 4, 2, 16
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v = (torch.randn(shape, device=cuda_device, generator=g).to(dtype)
+               for shape in ((b, sq, hq, d), (b, sk, hkv, d),
+                             (b, sk, hkv, d)))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    mean = v.float().mean(dim=1).repeat_interleave(hq // hkv, dim=1)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got[:, :sq - sk].float(),
+                               mean[:, None].expand(b, sq - sk, hq, d),
+                               atol=tol, rtol=tol)
+    torch.testing.assert_close(got.float(), flash_attention_plain(
+        q, k, v, causal=True).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
 def test_flash_attention_raises_on_inputs_it_does_not_take(cuda_device):
     q = torch.randn((1, 8, 4, 64), device=cuda_device)
     kv = torch.randn((1, 8, 2, 64), device=cuda_device)
@@ -175,6 +214,10 @@ def test_flash_attention_raises_on_inputs_it_does_not_take(cuda_device):
         flash_attention(q[:, :, :3].contiguous(), kv, kv)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         flash_attention(q.half(), kv.half(), kv.half())
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16,
+                       device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(flat[1:].view(q.shape), kv.bfloat16(), kv.bfloat16())
 
 
 # b, nc, q, h, p, n: the reference's SSD_CASES cut into chunks, Mamba-2

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro.kernels import ops, ref
+from repro.kernels.flash_attention import flash_attention_kernel
 from repro.models.attention import \
     flash_attention_chunked as ref_flash_attention_chunked
 from repro_torch.kernels import (flash_attention, flash_attention_plain,
@@ -146,6 +147,70 @@ def test_flash_attention_plain_matches_pallas(case, dtype):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32),
                                atol=tol, rtol=tol)
+
+
+def _pallas_folded(qj, kj, vj, **kw):
+    """The Pallas kernel on (B, S, H, D) inputs: heads folded into the
+    leading axis and GQA repeated, as ``ops._flash_attention_ref`` feeds
+    the oracle; 64-row blocks."""
+    b, sq, hq, d = qj.shape
+    hkv = kj.shape[2]
+    kj, vj = (jnp.repeat(x, hq // hkv, axis=2) for x in (kj, vj))
+    fold = lambda x: x.transpose(0, 2, 1, 3).reshape(b * hq, x.shape[1], d)
+    out = flash_attention_kernel(fold(qj), fold(kj), fold(vj), block_q=64,
+                                 block_k=64, interpret=True, **kw)
+    return np.asarray(out.reshape(b, hq, sq, d).transpose(0, 2, 1, 3),
+                      np.float32)
+
+
+# b, sq, sk, hq, hkv, d, causal, window, q_offset: GQA with a window and
+# queries inside the keys, and a ragged head-dim-16 case whose lengths
+# are no multiple of 16 (every row has keys in both)
+FLASH_OFFSET_CASES = [(2, 100, 300, 8, 2, 64, True, 96, 150),
+                      (2, 77, 130, 4, 2, 16, True, 24, 53)]
+
+
+@pytest.mark.parametrize("case", FLASH_OFFSET_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_pallas_with_q_offset(case, dtype):
+    causal, window, q_offset = case[6:]
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(case, dtype, seed=case[1])
+    want = _pallas_folded(qj, kj, vj, causal=causal, window=window,
+                          q_offset=q_offset)
+    got = flash_attention_plain(qt, kt, vt, causal=causal, window=window,
+                                q_offset=q_offset)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol,
+                               rtol=tol)
+
+
+def test_flash_attention_rows_without_keys_follow_the_oracle():
+    """Causal with Sq > Sk: query rows 0..69 sit before every key. The
+    oracle (``ref.attention_ref``) gives them the mean of the Sk values,
+    and so does the plain version on every row; the Pallas kernel pads
+    the keys to whole blocks and gives the padded keys the same finite
+    NEG_INF, so on those rows it divides by the padded count instead
+    (192 for Sk = 130 and 64-row blocks) and agrees on the rest."""
+    b, sq, sk, h, d = 2, 200, 130, 1, 16
+    (qj, qt), (kj, kt), (vj, vt) = _qkv((b, sq, sk, h, h, d), "float32",
+                                        seed=9)
+    fold = lambda x: x[:, :, 0]
+    oracle = np.asarray(ref.attention_ref(fold(qj), fold(kj), fold(vj),
+                                          causal=True))
+    pallas = _pallas_folded(qj, kj, vj, causal=True)[:, :, 0]
+    plain = flash_attention_plain(qt, kt, vt, causal=True)[:, :, 0].numpy()
+    no_keys = sq - sk
+    np.testing.assert_allclose(plain, oracle, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(plain[:, :no_keys],
+                               np.broadcast_to(vt[:, :, 0].numpy().mean(
+                                   1, keepdims=True), (b, no_keys, d)),
+                               atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(pallas[:, no_keys:], oracle[:, no_keys:],
+                               atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(pallas[:, :no_keys] * 192 / sk,
+                               oracle[:, :no_keys], atol=2e-5, rtol=2e-5)
+    assert np.abs(pallas[:, :no_keys] - oracle[:, :no_keys]).max() > 1e-2
 
 
 # sq, sk, hq, hkv, causal, window, chunk_target: each needs >= 2 query

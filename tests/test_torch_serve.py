@@ -301,6 +301,40 @@ def test_decode_step_matches_reference(case, per_slot, ref_params):
     np.testing.assert_array_equal(got_cache["pos"].numpy(), pos + 1)
 
 
+def test_decode_step_past_the_position_table_matches_reference(ref_params):
+    """A serving slot that sits idle is still decoded, and its position
+    runs on past the learned position table. The reference's ``jnp.take``
+    then reads NaN for that row; the port must do the same, not fail the
+    whole batch (on the card: a device-side assert)."""
+    cfg, rp = port_cfg(REF_TINY), ref_params["gpt2"]
+    b, sc = 3, 8
+    rng = np.random.default_rng(2)
+    cache_np = {k: rng.standard_normal(
+        (cfg.num_layers, b, sc, cfg.num_kv_heads, cfg.head_dim)
+    ).astype(np.float32) for k in ("k", "v")}
+    pos = np.array([5, cfg.max_position, cfg.max_position + 7])
+    toks = rng.integers(0, cfg.vocab_size, (b, 1))
+    ref_cache = ref_init_cache(REF_TINY, b, sc, per_slot=True)
+    ref_cache["attn"] = {k: jnp.asarray(v) for k, v in cache_np.items()}
+    ref_cache["pos"] = jnp.asarray(pos, jnp.int32)
+    want, want_cache = ref_decode_step(REF_TINY, rp, ref_cache,
+                                       jnp.asarray(toks, jnp.int32))
+    cache = init_cache(cfg, b, sc, per_slot=True, device="cpu")
+    cache["attn"] = {k: torch.from_numpy(v.copy())
+                     for k, v in cache_np.items()}
+    cache["pos"] = torch.as_tensor(pos)
+    got, got_cache = decode_step(cfg, bridge(rp), cache,
+                                 torch.from_numpy(toks))
+    assert np.isfinite(got[0].numpy()).all()
+    assert np.isnan(got[1:].numpy()).all() and np.isnan(np.asarray(want[1:])).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+    for k in ("k", "v"):
+        np.testing.assert_allclose(got_cache["attn"][k].numpy(),
+                                   np.asarray(want_cache["attn"][k]),
+                                   atol=1e-5, rtol=1e-5)
+
+
 @pytest.mark.parametrize("name", ["gpt2", "llama"])
 @pytest.mark.parametrize("impl", ["auto", "flash_lax"])
 def test_greedy_generate_matches_reference(name, impl, ref_params):
@@ -381,6 +415,37 @@ def test_engine_is_token_exact_against_per_request_decoding(member, tiny):
     for req, rec, want in zip(reqs, report.records, alone):
         assert rec.tokens == want, f"rid={req.rid}"
         assert rec.finish >= rec.arrival
+
+
+@pytest.mark.parametrize("member", ["dense", "pruned"])
+def test_engine_keeps_serving_while_an_idle_slot_runs_past_the_positions(
+        member, tiny):
+    """Requests far apart reuse slot 0 alone; every decode step still
+    decodes slot 1, whose position passes the learned position table
+    (here MAX_LEN rows) after 48 steps and whose cache row then takes NaN
+    keys and values. Last, two requests arrive together, so slot 1 takes
+    the second one after 60 such steps. The served tokens stay those each
+    request gets alone."""
+    cfg, params, db = tiny
+    cfg = cfg.replace(max_position=MAX_LEN)
+    params = {**params, "embed": {**params["embed"],
+                                  "pos": params["embed"]["pos"][:MAX_LEN]}}
+    prompts = _prompts(cfg, 7, 9, seed=11)
+    reqs = [Request(rid=i, tokens=prompts[i], steps=13,
+                    arrival=10.0 * min(i, 5)) for i in range(7)]
+    if member == "dense":
+        model = DenseServeModel(cfg, params, MAX_LEN)
+        alone = [generate(cfg, params, torch.from_numpy(r.tokens[None]),
+                          steps=r.steps, max_len=MAX_LEN)[0].tolist()
+                 for r in reqs]
+    else:
+        pm = shrink(cfg, params, db, _assignment("mixed"), device="cpu")
+        model = PrunedServeModel(pm, MAX_LEN)
+        alone = [_decode_alone(pm, r.tokens, r.steps) for r in reqs]
+    report = ServeEngine(model, num_slots=2).run(reqs)
+    assert report.steps == 6 * 12 and 5 * 12 > MAX_LEN
+    for req, rec, want in zip(reqs, report.records, alone):
+        assert rec.tokens == want, f"rid={req.rid}"
 
 
 @pytest.mark.parametrize("member", ["dense", "pruned"])
