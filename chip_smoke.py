@@ -9,13 +9,15 @@ Phases (any failure exits non-zero and prints no result):
    (one ``nvcc`` per source, all started together);
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (plus ragged, ``d_live``, bf16, GQA,
-   window, ``q_offset``, rows without keys and SSD chunk-size cases, and
-   the whole chunked SSD scan against the token-by-token recurrence), and
-   time kernel, plain version and, where one exists, the single PyTorch
-   call that computes the same function, each by CUDA events around
-   eager calls (flash attention also at the serving buckets 128-512 and
-   at 8 prompts of 1024, and by CUDA graph replay as well: its kernel
-   takes tens of microseconds, less than its wrapper's host path);
+   window, ``q_offset``, rows without keys and SSD chunk-size cases,
+   hessian_accum's splits of N, unaligned inputs and bit-identical
+   repeats, and the whole chunked SSD scan against the token-by-token
+   recurrence), and time kernel, plain version and, where one exists, the
+   single PyTorch call that computes the same function, each by CUDA
+   events around eager calls (hessian_accum at all three widths of its
+   paths; flash attention also at the serving buckets 128-512 and at 8
+   prompts of 1024, and by CUDA graph replay as well: its kernel takes
+   tens of microseconds, less than its wrapper's host path);
 3. check the slices on small models: the card's run (kernels) against the
    CPU run (plain versions) on the same weights and Hessians, a 2-layer
    model's prefill logits and served tokens, and a 2-layer Mamba-2's
@@ -152,56 +154,124 @@ def bound_ms(bytes_: float, ops: float, peak_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# hessian_accum: N = 8 x 512 calibration tokens, D = GPT-2 small's d_ff
+# (wd_in) and d_model (wo_in) and Mamba-2 2.7B's d_inner, each with the
+# running Hessian as accumulator; then the kernel's other branches: splits
+# of N, a D that is not a multiple of 4, a base that is not 16-byte
+# aligned (the 4-byte copies), N below one strip, bf16 for each.
+# (n, d, dtype name, acc, offset view)
+HESSIAN_CASES = [(n, d, dt, acc, off) for dt in ("float32", "bfloat16")
+                 for n, d, acc, off in [
+                     (4096, 3072, True, False), (4096, 768, True, False),
+                     (4096, 5120, True, False), (8192, 256, True, False),
+                     (257, 131, True, False), (513, 300, True, False),
+                     (1000, 200, True, True), (5, 96, True, False),
+                     (4096, 768, False, False)]]
+HESSIAN_BITWISE = [(4096, 768), (4096, 3072)]
+# timed, fp32 with an accumulator: the main path's shape first
+HESSIAN_TIMED = [(4096, 3072), (4096, 768), (4096, 5120)]
+
+
+def hessian_close(got, want, n):
+    """The reference's accumulator tolerance, 1e-4 * sqrt(N) abs + 1e-4
+    rel (a bf16 input converts exactly to fp32 on both sides, so it holds
+    there too): (max abs error, within it, atol)."""
+    atol = 1e-4 * math.sqrt(n)
+    diff = (got - want).abs()
+    return (float(diff.max()), bool((diff <= atol + 1e-4 * want.abs()).all()),
+            atol)
+
+
+def time_hessian(torch, kernel, plain, g, cases):
+    """Time ``kernel`` (fp32, with an accumulator) at each (N, D) of
+    ``cases`` beside ``plain`` (its plain version) and ``torch.addmm(acc,
+    x.T, x)``, each by ``time_ms`` (CUDA events around 20 eager calls);
+    returns one row per case. Each case is first checked against
+    ``plain``. The bound counts N * D * (D + 1) operations for the
+    distinct half of the symmetric product and D^2 for adding acc, on the
+    fp32 FMA pipes, against X read and acc and out moved once."""
+    rows = []
+    for n, d in cases:
+        x = torch.randn((n, d), device="cuda", generator=g)
+        acc = torch.randn((d, d), device="cuda", generator=g)
+        err, ok, _ = hessian_close(kernel(x, acc), plain(x, acc), n)
+        check(ok, f"hessian_accum disagrees at N={n} D={d}")
+        row = {"shape": [n, d], "max_abs_err": err,
+               "ms": time_ms(lambda: kernel(x, acc)),
+               "plain_ms": time_ms(lambda: plain(x, acc)),
+               "library_ms": time_ms(lambda: torch.addmm(acc, x.T, x))}
+        flop = float(n) * d * (d + 1) + d * d
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            4.0 * (n * d + 2 * d * d), flop, PEAK_FP32)
+        row["tflops"] = flop / row["ms"] / 1e9
+        rows.append(row)
+        print(f"hessian_accum N={n} D={d} fp32+acc: kernel {row['ms']:.4f} "
+              f"ms, plain {row['plain_ms']:.4f} ms, torch.addmm "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), {flop / 1e9:.2f} GFLOP needed, "
+              f"{row['tflops']:.1f} TFLOP/s, "
+              f"{row['ms'] / row['library_ms']:.3f}x torch.addmm")
+        del x, acc
+    return rows
+
+
 def check_kernels(torch, kernels):
     """Phase 2: each kernel against its plain version; returns per-kernel
     records (without launches) for the JSON line."""
     from repro_torch.kernels import hessian_accum_plain, obs_downdate_plain
+    from repro_torch.kernels.hessian_accum import last_wave_fill, launch_plan
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     records = {}
 
-    # --- hessian_accum: N = 8 x 512 calibration tokens; D = d_ff (wd_in)
-    # and d_model (wo_in), the running Hessian as accumulator
-    main = None
-    for n, d, dt, with_acc in [(4096, 3072, torch.float32, True),
-                               (4096, 768, torch.float32, True),
-                               (4096, 768, torch.bfloat16, False),
-                               (513, 300, torch.float32, True)]:
+    # --- hessian_accum: every case of HESSIAN_CASES against the plain
+    # version, two calls bit for bit, then timed at HESSIAN_TIMED; the
+    # JSON line's numbers are the first timed shape's
+    for n, d, dt_name, with_acc, offset in HESSIAN_CASES:
+        dt = getattr(torch, dt_name)
         x = torch.randn((n, d), device=dev, generator=g).to(dt)
+        if offset:  # a view 4 bytes past a 16-byte boundary
+            buf = torch.empty(n * d + 1, device=dev, dtype=dt)
+            buf[1:].copy_(x.reshape(-1))
+            x = buf[1:].view(n, d)
         acc = torch.randn((d, d), device=dev, generator=g) if with_acc else None
         got = kernels.hessian_accum(x, acc)
         torch.cuda.synchronize()
-        want = hessian_accum_plain(x, acc)
-        # reference tolerance with an accumulator: 1e-4 * sqrt(N); the bf16
-        # input converts exactly to fp32 on both sides, so it holds there too
-        atol, rtol = 1e-4 * math.sqrt(n), 1e-4
-        err = float((got - want).abs().max())
-        ok = bool(((got - want).abs() <= atol + rtol * want.abs()).all())
-        print(f"hessian_accum N={n} D={d} {str(dt)[6:]} acc={with_acc}: "
-              f"max_abs_err={err:.3e} (atol {atol:.2e} + rtol {rtol:g}"
-              f"*|plain|) {'ok' if ok else 'MISMATCH'}")
-        check(ok, f"hessian_accum disagrees at N={n} D={d}")
-        if main is None:
-            main = (x, acc, err)
-    x, acc, err = main
-    n, d = x.shape
-    ms = time_ms(lambda: kernels.hessian_accum(x, acc))
-    plain_ms = time_ms(lambda: hessian_accum_plain(x, acc))
-    lib_ms = time_ms(lambda: torch.addmm(acc, x.T, x))
-    # X^T X is symmetric: its D(D+1)/2 distinct entries take N FMA each;
-    # adding acc is one more operation per output entry
-    flop = float(n) * d * (d + 1) + d * d
-    b, by = bound_ms(4.0 * (n * d + 2 * d * d), flop, PEAK_FP32)
-    print(f"hessian_accum N={n} D={d} fp32+acc: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, torch.addmm {lib_ms:.4f} ms, bound {b:.4f} ms "
-          f"({by}), {flop / 1e9:.2f} GFLOP needed, "
-          f"{flop / ms / 1e9:.1f} TFLOP/s")
+        err, ok, atol = hessian_close(got, hessian_accum_plain(x, acc), n)
+        print(f"hessian_accum N={n} D={d} {dt_name} acc={with_acc} "
+              f"offset={offset}: max_abs_err={err:.3e} (atol {atol:.2e} + "
+              f"rtol 0.0001*|plain|) {'ok' if ok else 'MISMATCH'}")
+        check(ok, f"hessian_accum disagrees at N={n} D={d} {dt} "
+              f"offset={offset}")
+    for n, d in HESSIAN_BITWISE:
+        x = torch.randn((n, d), device=dev, generator=g)
+        acc = torch.randn((d, d), device=dev, generator=g)
+        same = torch.equal(kernels.hessian_accum(x, acc),
+                           kernels.hessian_accum(x, acc))
+        print(f"hessian_accum N={n} D={d}: two calls "
+              f"{'bit-identical' if same else 'DIFFER'}")
+        check(same, f"hessian_accum is not deterministic at N={n} D={d}")
+    for n, d in HESSIAN_TIMED:
+        entry, bps, plan = launch_plan(torch.empty((n, d), device=dev))
+        slots = torch.cuda.get_device_properties(
+            dev).multi_processor_count * bps
+        print(f"hessian_accum plan N={n} D={d}: {entry}, {bps} blocks an SM, "
+              f"{len(plan.upper)} upper tiles x {plan.splits} splits of "
+              f"{plan.chunk} rows = {plan.items} items in "
+              f"{-(-plan.items // slots)} waves of {slots} (last "
+              f"{last_wave_fill(plan.items, slots):.3f} full)")
+    rows = time_hessian(torch, kernels.hessian_accum, hessian_accum_plain, g,
+                        HESSIAN_TIMED)
     records["hessian_accum"] = {
         "name": "hessian_accum", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/hessian_accum.cu",
         "replaces": "src/repro/kernels/hessian_accum.py:57",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b, "bound_by": by, "library_ms": lib_ms}
+        **{key: rows[0][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "other_shapes": [{key: r[key] for key in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")} for r in rows[1:]]}
 
     # --- obs_downdate: the FFN group (M=12, d_in=d_ff, gs=1) and the
     # attention group (d_in=d_model, gs=head_dim) of GPT-2 small, a d_live
@@ -1189,7 +1259,8 @@ def main() -> int:
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     # flash attention's device-only times ride beside its eager ones
-    extra = ["device_ms", "library_device_ms"]
+    # and hessian_accum's other widths beside its main shape
+    extra = ["device_ms", "library_device_ms", "other_shapes"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in records.values()]}))
     print(card_line())

@@ -59,6 +59,61 @@ def test_hessian_accum_kernel_matches_plain(cuda_device, shape, dtype):
     assert hessian_accum.launches == before + 2
 
 
+def _hessian_x(n, d, dtype, device, seed, offset=False):
+    """Seeded (N, D) input on the card; with ``offset`` a view whose base
+    lies one element past the allocation's (not 16-byte aligned)."""
+    a = torch.from_numpy(
+        np.random.default_rng(seed).standard_normal((n, d)).astype(np.float32))
+    if not offset:
+        return a.to(device=device, dtype=dtype)
+    buf = torch.zeros(1 + n * d, dtype=dtype, device=device)
+    buf[1:1 + n * d].copy_(a.reshape(-1))
+    return buf[1:1 + n * d].view(n, d)
+
+
+# the kernel's branches: a split of N above 1 (all but the last), D not a
+# multiple of 4 (4-byte copies), a base off 16 bytes (4-byte copies), N
+# below one strip of 16 rows (one split, direct stores; the direct stores
+# of off-diagonal tiles are test_hessian_accum_kernel_matches_plain's
+# (64, 512))
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,offset", [(4096, 768, False),
+                                        (8192, 256, False),
+                                        (257, 131, False),
+                                        (1000, 200, True),
+                                        (5, 96, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hessian_accum_kernel_branches_match_plain(cuda_device, n, d, offset,
+                                                   dtype):
+    from repro_torch.kernels.hessian_accum import launch_plan
+    x = _hessian_x(n, d, dtype, cuda_device, n * d, offset)
+    assert x.is_contiguous()
+    if offset:
+        assert x.data_ptr() % 16 != 0
+    entry, _, plan = launch_plan(x)
+    if dtype == torch.float32:
+        aligned = d % 4 == 0 and not offset
+        assert entry == ("hessian_accum_f32" if aligned
+                         else "hessian_accum_f32_unaligned")
+    assert (plan.splits > 1) == (n >= 256)  # (5, 96): one split, direct
+    acc = _hessian_x(d, d, torch.float32, cuda_device, d)
+    for a in (None, acc):
+        got = hessian_accum(x, a)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, hessian_accum_plain(x, a),
+                                   atol=1e-4 * n ** 0.5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(4096, 768), (4096, 3072)])
+def test_hessian_accum_kernel_gives_the_same_bits_twice(cuda_device, n, d):
+    x = _hessian_x(n, d, torch.float32, cuda_device, 1)
+    acc = _hessian_x(d, d, torch.float32, cuda_device, 2)
+    first = hessian_accum(x, acc)
+    assert torch.equal(first, hessian_accum(x, acc))
+    assert torch.equal(hessian_accum(x), hessian_accum(x))
+
+
 def _downdate_inputs(M, d_in, d_out, gs, seed, d_live=None):
     """Module-stacked inputs; with d_live, rows/cols past it are dead
     (zero), as live-set compaction leaves them."""

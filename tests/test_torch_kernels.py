@@ -21,6 +21,7 @@ from repro_torch.kernels import (flash_attention, flash_attention_plain,
                                  hessian_accum, hessian_accum_plain,
                                  obs_downdate, obs_downdate_plain,
                                  reset_launch_counts)
+from repro_torch.kernels.hessian_accum import last_wave_fill, split_plan
 from repro_torch.models.attention import flash_attention_chunked
 
 
@@ -66,6 +67,73 @@ def test_hessian_accum_plain_with_accumulator_matches_pallas(shape):
     got = hessian_accum_plain(xt, acc_t)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                atol=1e-4 * n ** 0.5, rtol=1e-4)
+
+
+# the CUDA kernel's split plan: the paths' widths at N = 4096, splits of N
+# above 1 at narrow D, ragged D, N below one strip, empty N
+PLAN_SHAPES = [(4096, 768), (4096, 3072), (4096, 5120), (8192, 256),
+               (257, 131), (513, 300), (5, 96), (1, 1), (0, 7)]
+# (SMs, blocks per SM): H100 SXM and PCIe, A100, and a small card
+PLAN_CARDS = [(132, 2), (114, 2), (108, 1), (80, 2)]
+
+
+@pytest.mark.parametrize("n,d", PLAN_SHAPES)
+@pytest.mark.parametrize("sms,bps", PLAN_CARDS)
+def test_split_plan_covers_every_upper_tile_once(n, d, sms, bps):
+    plan = split_plan(n, d, sms, bps)
+    t = -(-d // 128)
+    assert plan.tiles == t
+    assert sorted(plan.upper) == [(i, j) for i in range(t)
+                                  for j in range(i, t)]
+    assert len(set(plan.upper)) == len(plan.upper) == t * (t + 1) // 2
+    assert plan.items == plan.splits * len(plan.upper)
+    assert plan.workspace_shape == (None if plan.splits == 1 else
+                                    (plan.splits, len(plan.upper), 128, 128))
+
+
+@pytest.mark.parametrize("n,d", PLAN_SHAPES)
+@pytest.mark.parametrize("sms,bps", PLAN_CARDS)
+def test_split_plan_partitions_the_rows(n, d, sms, bps):
+    plan = split_plan(n, d, sms, bps)
+    rows = plan.rows()
+    assert len(rows) == plan.splits and plan.chunk % 16 == 0
+    assert rows[0][0] == 0 and rows[-1][1] == n
+    for (lo, hi), (nxt, _) in zip(rows, rows[1:]):
+        assert lo < hi == nxt  # no gap, no overlap, none empty
+    assert all(hi - lo == plan.chunk for lo, hi in rows[:-1])
+
+
+@pytest.mark.parametrize("n,d", PLAN_SHAPES)
+@pytest.mark.parametrize("sms,bps", PLAN_CARDS)
+def test_split_plan_fills_the_last_wave(n, d, sms, bps):
+    """The fewest splits whose last wave of work items is at least 75%
+    full, among splits of whole 16-row strips, at most N // 128 of them;
+    if none is, the fullest last wave."""
+    plan = split_plan(n, d, sms, bps)
+    tiles = len(plan.upper)
+    strips = max(1, -(-n // 16))
+
+    def fill(s):
+        items, slots = s * tiles, sms * bps
+        return (items - (-(-items // slots) - 1) * slots) / slots
+
+    splits = sorted({-(-strips // -(-strips // w))
+                     for w in range(1, max(1, n // 128) + 1)})
+    full = [s for s in splits if fill(s) >= 0.75]
+    want = full[0] if full else max(splits, key=lambda s: (fill(s), -s))
+    assert plan.splits == want
+    assert last_wave_fill(plan.items, sms * bps) == pytest.approx(fill(want))
+
+
+def test_split_plan_at_the_paths_widths_on_an_h100():
+    """The plans that the kernel's source header states (132 SMs, 2
+    blocks each): (splits, rows per split, waves)."""
+    for d, splits, chunk, waves in [(768, 10, 416, 1), (3072, 6, 688, 7),
+                                    (5120, 8, 512, 25)]:
+        plan = split_plan(4096, d, 132, 2)
+        assert (plan.splits, plan.chunk) == (splits, chunk)
+        assert -(-plan.items // 264) == waves
+        assert last_wave_fill(plan.items, 264) >= 0.75
 
 
 def _downdate_inputs(M, d_in, d_out, gs, seed, d_live=None):
