@@ -17,7 +17,9 @@ Phases (any failure exits non-zero and prints no result):
    events around eager calls (hessian_accum at all three widths of its
    paths; flash attention also at the serving buckets 128-512 and at 8
    prompts of 1024, and by CUDA graph replay as well: its kernel takes
-   tens of microseconds, less than its wrapper's host path);
+   tens of microseconds, less than its wrapper's host path; the SSD pass
+   at the calibration batch's 80 heads and at 40 and 16, eager and by
+   graph replay);
 3. check the slices on small models: the card's run (kernels) against the
    CPU run (plain versions) on the same weights and Hessians, a 2-layer
    model's prefill logits and served tokens, and a 2-layer Mamba-2's
@@ -73,9 +75,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 # H100 SXM data sheet (dense, 700 W): fp32 outside the tensor cores, bf16
-# on the tensor cores, and device memory bandwidth
+# and TF32 on the tensor cores, and device memory bandwidth
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 HBM_BYTES_PER_S = 3.35e12
 # the main path's measured latency table: each module level the mean of
 # 50 calls after 5 untimed ones
@@ -465,6 +468,9 @@ SSD_CASES = [(2, 64, 4, 32, 16, 32), (1, 96, 8, 16, 8, 32),
              (2, 50, 2, 64, 32, 16), (1, 128, 6, 32, 16, 64)]
 SSD_MAIN = (8, 512, 80, 64, 128, 128)
 SSD_WIDE = [(1, 512, 80, 64, 128, 256), (2, 300, 80, 64, 128, 128)]
+# timed with bf16 B and C: the calibration batch, then half and a fifth of
+# its heads, as stand-ins for the search's pruned candidates
+SSD_TIMED = [SSD_MAIN, (8, 512, 40, 64, 128, 128), (8, 512, 16, 64, 128, 128)]
 # kernel vs plain, by the type of B and C: in fp32, sums of up to a chunk
 # of terms in another order (atol = rtol = 1e-4); with bf16 B and C the
 # plain version rounds the scores to bf16 as the reference's model twin
@@ -519,10 +525,13 @@ def check_ssd(torch, kernels, g):
     the full-width shapes with x, B and C made in bf16 (xdt formed as the
     model forms it) and B, C handed over in fp32 and in bf16; then the
     whole chunked scan against the recurrence, with and without an
-    initial state; timed at the calibration batch as the main path runs
-    it (bf16 B and C)."""
+    initial state; two calls bit for bit; the launch plan and
+    ``time_ssd`` at SSD_TIMED (the calibration batch as the main path runs
+    it, bf16 B and C, then 40 and 16 heads). The JSON line's numbers are
+    the calibration batch's, the other head counts under ``other_shapes``."""
     from repro_torch.kernels import ssd_intra_chunk_plain
-    from repro_torch.kernels.ssd_scan import intra_chunk_inputs, ssd_chunked
+    from repro_torch.kernels.ssd_scan import (intra_chunk_inputs, launch_plan,
+                                              ssd_chunked, waves)
     cases = ([(c, "float32", "float32") for c in SSD_CASES]
              + [(c, "bfloat16", bc) for c in [SSD_MAIN] + SSD_WIDE
                 for bc in ("float32", "bfloat16")])
@@ -540,8 +549,6 @@ def check_ssd(torch, kernels, g):
               f"B/C {bc}: (b, nc, q)={tuple(xdt.shape[:3])} max_abs_err="
               f"{err:.3e} ({tol}) {'ok' if ok else 'MISMATCH'}")
         check(ok, f"ssd_intra_chunk disagrees at {case} B/C {bc}")
-        if case == SSD_MAIN and bc == "bfloat16":
-            timed = (xdt, dacs, Bb, Cb, err)
         del x, dt, B, C, xdt, dacs, Bb, Cb, got, want
 
     for case in (SSD_CASES[2], (1, 300, 8, 64, 128, 128)):
@@ -563,30 +570,91 @@ def check_ssd(torch, kernels, g):
                   f" {'ok' if ok else 'MISMATCH'}")
             check(ok, f"ssd_chunked disagrees with the recurrence at {case}")
 
-    xdt, dacs, Bb, Cb, err = timed
-    b, nc, q, h, p = xdt.shape
-    n = Bb.shape[-1]
-    ms = time_ms(lambda: kernels.ssd_intra_chunk(xdt, dacs, Bb, Cb))
-    plain_ms = time_ms(lambda: ssd_intra_chunk_plain(xdt, dacs, Bb, Cb))
-    # per chunk: the causal scores Q(Q+1)/2 x N, y_diag Q(Q+1)/2 x H x P
-    # (causal) and the states Q x H x P x N multiply-adds; each input read
-    # and each output written once
-    tri = q * (q + 1) / 2
-    ops = 2.0 * b * nc * (tri * n + tri * h * p + q * h * p * n)
-    nbytes = (4.0 * (xdt.numel() + dacs.numel())
-              + Bb.element_size() * (Bb.numel() + Cb.numel())
-              + 4.0 * (xdt.numel() + b * nc * h * p * n))
-    bnd, by = bound_ms(nbytes, ops, PEAK_FP32)
-    print(f"ssd_intra_chunk (b, nc, q, h, p, n)={(b, nc, q, h, p, n)} B/C "
-          f"bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no single "
-          f"PyTorch call, bound {bnd:.4f} ms ({by}; {ops / 1e9:.3f} GFLOP "
-          f"over {PEAK_FP32 / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.2f} MB over "
-          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {ops / ms / 1e9:.1f} TFLOP/s")
+    # two calls bit for bit: the calibration shape and a chunk of two tiles
+    for case in (SSD_MAIN, SSD_WIDE[0]):
+        x, dt, A, B, C = ssd_data(torch, case, torch.bfloat16, g)
+        inputs = intra_chunk_inputs(x, dt, A, B, C, case[-1])
+        same = all(torch.equal(a, b) for a, b in zip(
+            kernels.ssd_intra_chunk(*inputs), kernels.ssd_intra_chunk(*inputs)))
+        print(f"ssd_intra_chunk {case}: two calls "
+              f"{'bit-identical' if same else 'DIFFER'}")
+        check(same, f"ssd_intra_chunk is not deterministic at {case}")
+        del x, dt, B, C, inputs
+    for b, s, h, p, n, chunk in SSD_TIMED:
+        plan = launch_plan(torch.empty((b, s // chunk, chunk, h, p),
+                                       device="cuda"),
+                           torch.empty(0, device="cuda", dtype=torch.bfloat16))
+        slots = plan.sms * plan.blocks_per_sm
+        print(f"ssd_intra_chunk plan (b, s, h, p, n, chunk)="
+              f"{(b, s, h, p, n, chunk)}: query tile {plan.layout.qt} rows x "
+              f"{plan.layout.tiles}, {plan.groups} head groups, {plan.blocks} "
+              f"blocks, {plan.layout.smem} B of shared memory, "
+              f"{plan.blocks_per_sm} block(s) an SM, "
+              f"{waves(plan.blocks, slots)} wave(s) of {slots}")
+    rows = time_ssd(torch, kernels.ssd_intra_chunk, ssd_intra_chunk_plain, g,
+                    SSD_TIMED)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "device_ms")
     return {"name": "ssd_intra_chunk", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:52",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bnd, "bound_by": by, "library_ms": None}
+            **{key: rows[0][key] for key in keys},
+            "other_shapes": [{"shape": r["shape"], **{key: r[key]
+                                                      for key in keys}}
+                             for r in rows[1:]]}
+
+
+def time_ssd(torch, kernel, plain, g, cases):
+    """Time ``kernel`` (the intra-chunk pass) at each (b, s, h, p, n,
+    chunk) of ``cases`` with x, B and C made in bf16 and xdt formed as the
+    model forms it (so B and C reach the kernel in bf16), beside ``plain``
+    (its plain version); returns one row per case. Each case is first
+    checked against ``plain`` under SSD_TOL["bfloat16"]. ``ms`` and
+    ``plain_ms`` are ``time_ms`` (CUDA events around 20 eager calls, the
+    yardstick of every kernel in the JSON line), ``device_ms`` is
+    ``graph_ms`` (the same calls replayed from a CUDA graph). No single
+    PyTorch call computes the function (``library_ms`` None). The bound
+    counts the causal scores Q(Q+1)/2 x N, y_diag Q(Q+1)/2 x H x P and the
+    states Q x H x P x N multiply-adds per chunk at the tensor cores' TF32
+    rate, against each input read and each output written once; the old
+    reckoning at the CUDA cores' fp32 rate is printed beside it."""
+    from repro_torch.kernels.ssd_scan import intra_chunk_inputs
+    rows = []
+    for case in cases:
+        x, dt, A, B, C = ssd_data(torch, case, torch.bfloat16, g)
+        xdt, dacs, Bb, Cb = intra_chunk_inputs(x, dt, A, B, C, case[-1])
+        del x, dt, B, C
+        b, nc, q, h, p = xdt.shape
+        n = Bb.shape[-1]
+        err, ok = ssd_close(torch, kernel(xdt, dacs, Bb, Cb),
+                            plain(xdt, dacs, Bb, Cb), "bfloat16")
+        check(ok, f"ssd_intra_chunk disagrees at {case} (timed)")
+        row = {"shape": [b, nc, q, h, p, n], "max_abs_err": err,
+               "ms": time_ms(lambda: kernel(xdt, dacs, Bb, Cb)),
+               "device_ms": graph_ms(lambda: kernel(xdt, dacs, Bb, Cb)),
+               "plain_ms": time_ms(lambda: plain(xdt, dacs, Bb, Cb)),
+               "library_ms": None}
+        tri = q * (q + 1) / 2
+        ops = 2.0 * b * nc * (tri * n + tri * h * p + q * h * p * n)
+        nbytes = (4.0 * (xdt.numel() + dacs.numel())
+                  + Bb.element_size() * (Bb.numel() + Cb.numel())
+                  + 4.0 * (xdt.numel() + b * nc * h * p * n))
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops, PEAK_TF32)
+        fp32_bound, _ = bound_ms(nbytes, ops, PEAK_FP32)
+        rows.append(row)
+        print(f"ssd_intra_chunk (b, nc, q, h, p, n)={(b, nc, q, h, p, n)} "
+              f"B/C bf16: kernel {row['ms']:.4f} ms eager, "
+              f"{row['device_ms']:.4f} ms device (graph); plain "
+              f"{row['plain_ms']:.4f} ms eager; no single PyTorch call; "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+              f"{ops / 1e9:.3f} GFLOP over {PEAK_TF32 / 1e12:.0f} TFLOP/s "
+              f"TF32, {nbytes / 1e6:.2f} MB over "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {fp32_bound:.4f} ms at "
+              f"the CUDA cores' {PEAK_FP32 / 1e12:.0f} TFLOP/s); "
+              f"{row['bound_ms'] / row['ms']:.3f} of the bound eager, "
+              f"{row['bound_ms'] / row['device_ms']:.3f} on the device")
+        del xdt, dacs, Bb, Cb
+    return rows
 
 
 def compare_databases(np, db_cpu, db_gpu, label):
@@ -1258,8 +1326,9 @@ def main() -> int:
         rec["launches"] = launches[name]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
-    # flash attention's device-only times ride beside its eager ones
-    # and hessian_accum's other widths beside its main shape
+    # flash attention's and the SSD pass's device-only times ride beside
+    # their eager ones, and hessian_accum's and the SSD pass's other
+    # shapes beside their main shape
     extra = ["device_ms", "library_device_ms", "other_shapes"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in records.values()]}))

@@ -277,11 +277,20 @@ def test_flash_attention_raises_on_inputs_it_does_not_take(cuda_device):
 
 # b, nc, q, h, p, n: the reference's SSD_CASES cut into chunks, Mamba-2
 # 2.7B's calibration widths (one batch row), a chunk of 256, a ragged
-# chunk with p = 128, and the largest chunk the kernel takes
+# chunk with p = 128, and the largest chunk the kernel takes; then the
+# kernel's edges: head groups of unequal size (10 heads over 4 groups), a
+# chunk that is not a multiple of 16 rows (and of two query tiles), a
+# ragged state size (element copies of B and C; 13 is odd, so the states
+# are stored element by element), a state size above one slab of B/C
+# columns, N = 8 (padded to a k16 step in bf16), P = 16 and P = 128
 SSD_CASES = [(2, 2, 32, 4, 32, 16), (1, 3, 32, 8, 16, 8),
              (2, 4, 16, 2, 64, 32), (1, 2, 64, 6, 32, 16),
              (1, 4, 128, 80, 64, 128), (1, 1, 256, 8, 64, 128),
-             (2, 1, 100, 3, 128, 40), (1, 1, 512, 2, 16, 8)]
+             (2, 1, 100, 3, 128, 40), (1, 1, 512, 2, 16, 8),
+             (8, 4, 128, 10, 64, 128), (1, 2, 50, 5, 16, 24),
+             (1, 1, 300, 3, 32, 16), (1, 2, 64, 5, 32, 13),
+             (1, 1, 128, 4, 64, 200), (2, 1, 128, 3, 128, 8),
+             (1, 1, 1, 2, 16, 8)]
 
 
 def _intra_chunk_inputs(b, nc, q, h, p, n, dev, seed):
@@ -312,6 +321,43 @@ def test_ssd_intra_chunk_kernel_matches_plain(cuda_device, case, dtype):
         else:
             torch.testing.assert_close(g, w, atol=2e-2 * float(w.abs().max()),
                                        rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_intra_chunk_kernel_takes_an_unaligned_xdt(cuda_device, dtype):
+    """xdt 4 bytes past a 16-byte boundary (element copies of xdt), B and C
+    views 4 bytes past one too (element copies of B and C)."""
+    xdt, dacs, B, C = _intra_chunk_inputs(1, 2, 64, 3, 32, 16, cuda_device, 5)
+    B, C = B.to(dtype), C.to(dtype)
+
+    def shifted(t):
+        pad = 4 // t.element_size()
+        buf = torch.empty(t.numel() + pad, device=cuda_device, dtype=t.dtype)
+        buf[pad:].copy_(t.reshape(-1))
+        return buf[pad:].view(t.shape)
+
+    xdt_u, B_u, C_u = shifted(xdt), shifted(B), shifted(C)
+    assert xdt_u.data_ptr() % 16 != 0 and B_u.data_ptr() % 16 != 0
+    got = ssd_intra_chunk(xdt_u, dacs, B_u, C_u)
+    torch.cuda.synchronize()
+    for g, w in zip(got, ssd_intra_chunk(xdt, dacs, B, C)):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(8, 4, 128, 80, 64, 128),
+                                  (1, 1, 512, 5, 64, 128),
+                                  (2, 1, 100, 3, 128, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_intra_chunk_kernel_gives_the_same_bits_twice(cuda_device, case,
+                                                          dtype):
+    xdt, dacs, B, C = _intra_chunk_inputs(*case, cuda_device, 3)
+    B, C = B.to(dtype), C.to(dtype)
+    first = ssd_intra_chunk(xdt, dacs, B, C)
+    second = ssd_intra_chunk(xdt, dacs, B, C)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def ssd_recurrence(x, dt, A, B, C, initial_state=None):

@@ -19,7 +19,7 @@ from repro_torch.runtime.costmodel import InferenceEnv
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*torch*.py"))
 
 
 def _imported_modules(path: pathlib.Path):
@@ -42,7 +42,7 @@ def test_port_files_are_found():
     names = {p.name for p in PORT_FILES}
     assert {"oneshot.py", "obs_downdate.py", "flash_attention.py",
             "shrink.py", "engine.py", "ssm.py", "ssd_scan.py",
-            "mamba2_2p7b.py", "chip_smoke.py"} <= names
+            "mamba2_2p7b.py", "chip_smoke.py", "bench_torch_ssd.py"} <= names
 
 
 ENV = InferenceEnv(batch=2, seq=8, hw=None)

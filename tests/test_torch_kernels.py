@@ -6,7 +6,8 @@ kernels against their plain versions are in tests/test_torch_cuda.py.
 Tolerances are the reference's (tests/test_kernels.py,
 tests/test_batched_db.py): hessian_accum 1e-3·√N fp32, 1e-1·√N bf16,
 1e-4·√N with an accumulator; obs_downdate 1e-5; flash attention 2e-5
-fp32, 2e-2 bf16.
+fp32, 2e-2 bf16; the SSD kernel's split-TF32 arithmetic 1e-4 (its fp32
+tolerance on the card).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +23,10 @@ from repro_torch.kernels import (flash_attention, flash_attention_plain,
                                  obs_downdate, obs_downdate_plain,
                                  reset_launch_counts)
 from repro_torch.kernels.hessian_accum import last_wave_fill, split_plan
+from repro_torch.kernels.ssd_scan import (HEAD_DIMS, MAX_CHUNK, SMEM_LIMIT,
+                                          intra_chunk_inputs,
+                                          ssd_intra_chunk_plain, ssd_layout,
+                                          ssd_plan, waves)
 from repro_torch.models.attention import flash_attention_chunked
 
 
@@ -315,3 +320,185 @@ def test_wrappers_use_plain_versions_on_cpu_without_launching():
                        flash_attention_plain(q, k, v, **kw))
     assert hessian_accum.launches == 0 and obs_downdate.launches == 0
     assert flash_attention.launches == 0
+
+
+# ----------------------------------------------------------------------
+# the SSD kernel's arithmetic and launch plan (csrc/ssd_scan.cu), on the
+# CPU: the card tests hold the kernel itself to its plain version
+# ----------------------------------------------------------------------
+
+# b, s, h, p, n, chunk: the reference's SSD_CASES (tests/test_kernels.py),
+# then one full-width batch of Mamba-2 2.7B: one 128-step chunk, 80 heads
+SSD_EMULATED = [(2, 64, 4, 32, 16, 32), (1, 96, 8, 16, 8, 32),
+                (2, 50, 2, 64, 32, 16), (1, 128, 6, 32, 16, 64),
+                (1, 128, 80, 64, 128, 128)]
+SSD_TOL = 1e-4  # the kernel's fp32 tolerance (atol = rtol)
+
+
+def _tf32(x):
+    """TF32 rounding as the kernel does it: to nearest, ties away from
+    zero, on the low 13 bits of the fp32 pattern."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_mm(a, b, products):
+    """a @ b on TF32 operands with fp32 sums: 3 products (lo*hi + hi*lo +
+    hi*hi, x = hi + lo, hi = tf32(x), lo = tf32(x - hi)), 2 where b is
+    exact in TF32 (lo*b + hi*b), or 1 (tf32(a) tf32(b))."""
+    a_hi = _tf32(a)
+    if products == 1:
+        return a_hi @ _tf32(b)
+    a_lo = _tf32(a - a_hi)
+    if products == 2:
+        return a_lo @ b + a_hi @ b
+    b_hi = _tf32(b)
+    b_lo = _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _ssd_emulated(xdt, dacs, B, C, split=True):
+    """The kernel's arithmetic: scores exact from bf16 B and C (bf16 MMA)
+    or in split TF32 from fp32; y_diag = M xdt in split TF32 (3 products);
+    the states in split TF32 (2 products with bf16 B, 3 with fp32). With
+    ``split=False`` every fp32 operand takes a single TF32 product."""
+    q = xdt.shape[2]
+    exact = B.dtype == torch.bfloat16
+    Bf, Cf = B.float(), C.float()
+    full = 3 if split else 1
+    scores = (Cf @ Bf.transpose(-1, -2) if exact
+              else _split_mm(Cf, Bf.transpose(-1, -2), full))
+    diff = dacs[:, :, :, None, :] - dacs[:, :, None, :, :]  # (b,nc,q,k,h)
+    tril = torch.ones((q, q), dtype=torch.bool).tril()[:, :, None]
+    decay = torch.where(tril, torch.exp(torch.where(tril, diff, 0.0)), 0.0)
+    m = (scores[..., None] * decay).permute(0, 1, 4, 2, 3)  # (b,nc,h,q,k)
+    y = _split_mm(m, xdt.permute(0, 1, 3, 2, 4), full).permute(0, 1, 3, 2, 4)
+    xdec = xdt * torch.exp(dacs[:, :, -1:, :] - dacs)[..., None]
+    states = _split_mm(xdec.permute(0, 1, 3, 4, 2), Bf[:, :, None],
+                       (2 if exact else 3) if split else 1)
+    return y, states
+
+
+def _ssd_case_inputs(case, dtype):
+    b, s, h, p, n, chunk = case
+    rng = np.random.default_rng(sum(case))
+    x = rng.standard_normal((b, s, h, p)) * 0.5
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h))))
+    A = -np.exp(rng.standard_normal(h) * 0.3)
+    B, C = (rng.standard_normal((b, s, n)) * 0.5 for _ in range(2))
+    x, dt, A, B, C = (torch.from_numpy(a.astype(np.float32))
+                      for a in (x, dt, A, B, C))
+    xdt, dacs, Bb, Cb = intra_chunk_inputs(x, dt, A, B, C, chunk)
+    return xdt, dacs, Bb.to(dtype), Cb.to(dtype)
+
+
+@pytest.mark.parametrize("case", SSD_EMULATED, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32 B/C", "bf16 B/C"])
+def test_ssd_split_tf32_arithmetic_holds_the_fp32_tolerance(case, dtype):
+    """The kernel's split TF32 against its plain version in fp32 (with
+    bf16 B and C the plain version on B and C in fp32: the kernel's bf16
+    scores are exact products), within 1e-4; a single TF32 product
+    beside it, printed: it is why the kernel pays for the split."""
+    xdt, dacs, B, C = _ssd_case_inputs(case, dtype)
+    want = ssd_intra_chunk_plain(xdt, dacs, B.float(), C.float())
+    split = _ssd_emulated(xdt, dacs, B, C)
+    single = _ssd_emulated(xdt, dacs, B, C, split=False)
+    for name, got, w in zip(("y_diag", "states"), split, want):
+        err = float((got - w).abs().max())
+        err1 = float((single[name == "states"] - w).abs().max())
+        print(f"{case} {dtype}: {name} split TF32 max_abs_err={err:.2e}, "
+              f"single TF32 {err1:.2e} (|plain| up to "
+              f"{float(w.abs().max()):.2e})")
+        torch.testing.assert_close(got, w, atol=SSD_TOL, rtol=SSD_TOL)
+    if case[2] == 80:  # at full width a single TF32 product misses 1e-4
+        assert not all(torch.allclose(g, w, atol=SSD_TOL, rtol=SSD_TOL)
+                       for g, w in zip(single, want))
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10  # the TF32 step above 1
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12, -1.0 - 2.0 ** -11,
+                      1.0 + 2.0 ** -11 - 2.0 ** -23])
+    assert _tf32(x).tolist() == [1.0, one, 1.0, -one, 1.0]
+
+
+@pytest.mark.parametrize("p", HEAD_DIMS)
+def test_ssd_layout_fits_every_chunk_the_wrapper_takes(p):
+    """Every chunk of 1..512 rows: a query tile of whole 16-row slices
+    (the chunk up to 128 rows, else 64-row tiles), aligned regions in
+    order, the score tiles of the last query tile, within Hopper's 232,448
+    bytes of shared memory a block."""
+    for q in range(1, MAX_CHUNK + 1):
+        lay = ssd_layout(q, p)
+        assert lay.qt % 16 == 0 and lay.qt <= 128
+        assert lay.qt * (lay.tiles - 1) < q <= lay.qt * lay.tiles
+        assert lay.tiles == 1 or lay.qt == 64
+        regions = [0, lay.off_s, lay.off_b, lay.off_dac, lay.off_dec,
+                   lay.smem]
+        assert all(r % 16 == 0 for r in regions[:-1])
+        assert regions == sorted(regions)
+        # two xdt stages, or the C and B rows of the score pass
+        assert lay.off_s >= max(2 * lay.qt * (p + 4) * 4,
+                                (lay.qt + 64) * 272)
+        r, i0 = lay.qt // 16, (lay.tiles - 1) * lay.qt
+        assert lay.off_b - lay.off_s == sum(
+            i0 // 8 + 2 * (s + 1) for s in range(r)) * 512
+        assert lay.off_b + lay.qt * 272 == lay.off_dac
+        assert lay.off_dec - lay.off_dac == 2 * (lay.tiles * lay.qt + 4) * 4
+        assert lay.smem - lay.off_dec == lay.qt * 4 <= SMEM_LIMIT
+
+
+# bc, q, h, p: the calibration batch at 80, 16 and 10 heads (unequal
+# groups), chunks of two and five query tiles, a ragged chunk at p = 128,
+# one row
+SSD_PLANS = [(32, 128, 80, 64), (32, 128, 16, 64), (32, 128, 10, 64),
+             (2, 256, 5, 64), (1, 300, 3, 32), (3, 100, 7, 128), (1, 1, 2, 16)]
+SSD_CARDS = [(132, 1), (132, 2), (114, 1), (8, 1)]
+
+
+@pytest.mark.parametrize("bc,q,h,p", SSD_PLANS)
+@pytest.mark.parametrize("sms,bps", SSD_CARDS)
+def test_ssd_plan_covers_every_chunk_head_and_query_tile_once(bc, q, h, p,
+                                                              sms, bps):
+    plan = ssd_plan(bc, q, h, p, sms, bps)
+    tiles = plan.layout.tiles
+    assert 1 <= plan.groups <= h
+    assert plan.blocks == tiles * bc * plan.groups
+    work = list(plan.work())
+    assert [w[0] for w in work] == sorted((w[0] for w in work),
+                                          reverse=True)  # longest first
+    assert all(lo < hi for _, _, lo, hi in work)
+    got = [(tile, chunk, hd) for tile, chunk, lo, hi in work
+           for hd in range(lo, hi)]
+    assert len(got) == len(set(got))
+    assert set(got) == {(tile, chunk, hd) for tile in range(tiles)
+                        for chunk in range(bc) for hd in range(h)}
+
+
+@pytest.mark.parametrize("bc,q,h,p", SSD_PLANS)
+@pytest.mark.parametrize("sms,bps", SSD_CARDS)
+def test_ssd_plan_takes_the_least_waves_times_heads(bc, q, h, p, sms, bps):
+    """The head groups minimise waves x (0.5 + the largest group's heads),
+    the fewest groups on a tie."""
+    plan = ssd_plan(bc, q, h, p, sms, bps)
+
+    def cost(g):
+        return (waves(plan.layout.tiles * bc * g, sms * bps)
+                * (0.5 + -(-h // g)))
+
+    best = min(range(1, h + 1), key=lambda g: (cost(g), g))
+    assert plan.groups == best
+
+
+def test_ssd_plan_at_the_calibration_batch_on_an_h100():
+    """What the kernel's source header states: at (BC, Q, P) = (32, 128,
+    64), 142,880 bytes of shared memory (one block an SM) and 4 groups of
+    heads, 128 blocks, for 80, 40 and 16 heads. 128 blocks leave 4 of 132
+    SMs idle for one wave; 5 groups would take a second wave."""
+    assert ssd_layout(128, 64).smem == 142880
+    for h in (80, 40, 16):
+        plan = ssd_plan(32, 128, h, 64, 132, 1)
+        assert plan.groups == 4 and plan.blocks == 128
+        assert waves(plan.blocks, 132) == 1
+        assert waves(32 * 5, 132) == 2
