@@ -2,13 +2,17 @@
 """Where the time goes in the PyTorch port's one-shot path, on one GPU.
 
     python3 scripts/profile_torch_oneshot.py [--arch gpt2-small]
-        [--layers N] [--steps 48]
+        [--layers N] [--steps 48] [--moe-prune-unit width|expert]
 
-Runs ``oneshot_prune`` on GPT-2 small (12 layers, targets 1.5x/2x/3x) or
-Mamba-2 2.7B (``--arch mamba2-2.7b``: 8 of its 64 layers, targets
-1.25x/1.5x/2x, as ``chip_smoke.py`` phase 6 runs it) at full width with
-seeded weights, 32 x 512 calibration tokens and a latency table measured
-for batch 16 x 128 prefill, once to warm up and once under
+Runs ``oneshot_prune`` on an architecture of the port's config registry
+(``repro_torch.configs.ARCHS``) at full width: GPT-2 small (12 layers,
+targets 1.5x/2x/3x), Mamba-2 2.7B (``--arch mamba2-2.7b``: 8 of its 64
+layers, as ``chip_smoke.py`` phase 6 runs it), Phi-3.5-MoE (``--arch
+phi3.5-moe-42b-a6.6b``: 1 of its 32 layers, as phase 7 runs it, in the
+MoE prune mode ``--moe-prune-unit`` names) or any other at 1 layer, the
+others with targets 1.25x/1.5x/2x; seeded weights, 32 x 512 calibration
+tokens and a latency table measured for batch 16 x 128 prefill, once to
+warm up and once under
 ``torch.profiler``. ``oneshot_prune`` marks each of its stages as a
 profiler range ``oneshot_prune.<stage>``; every device activity (kernel
 or copy) is put in the stage whose range it starts in. For each stage it
@@ -33,13 +37,14 @@ import sys
 import time
 from collections import defaultdict
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "..", "src"))
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
 
 RANGE = "oneshot_prune."
-# arch -> (config name in repro_torch.configs, default depth, targets)
-ARCHS = {"gpt2-small": ("GPT2_SMALL", 12, [1.5, 2.0, 3.0]),
-         "mamba2-2.7b": ("MAMBA2_2P7B", 8, [1.25, 1.5, 2.0])}
+# the default depth of an arch (1 layer where none is named: a full-width
+# layer of the larger configs is already several GB of weights and
+# database), and its targets
+DEPTH = {"gpt2-small": 12, "mamba2-2.7b": 8}
+TARGETS = {"gpt2-small": [1.5, 2.0, 3.0]}
 
 
 def stage_activity(prof):
@@ -73,13 +78,19 @@ def stage_activity(prof):
 
 
 def main() -> int:
+    sys.path.insert(0, SRC)
+    from repro_torch import configs
+
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=sorted(ARCHS), default="gpt2-small")
+    ap.add_argument("--arch", choices=sorted(configs.ARCHS),
+                    default="gpt2-small")
     ap.add_argument("--layers", type=int, default=None,
                     help="depth (default: 12 for gpt2-small, 8 for "
-                         "mamba2-2.7b)")
+                         "mamba2-2.7b, 1 for the others)")
     ap.add_argument("--steps", type=int, default=48)
     ap.add_argument("--top", type=int, default=8)
+    ap.add_argument("--moe-prune-unit", choices=("width", "expert"),
+                    default="width")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -94,20 +105,21 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
 
-    from repro_torch import configs
     from repro_torch.core.oneshot import oneshot_prune
     from repro_torch.data import calibration_batches
     from repro_torch.models import model_init
     from repro_torch.runtime.costmodel import InferenceEnv
 
-    name, depth, targets = ARCHS[args.arch]
-    cfg = getattr(configs, name)
-    cfg = cfg.replace(num_layers=args.layers or depth)
+    targets = TARGETS.get(args.arch, [1.25, 1.5, 2.0])
+    cfg = configs.get_config(args.arch).replace(
+        num_layers=args.layers or DEPTH.get(args.arch, 1),
+        moe_prune_unit=args.moe_prune_unit)
     params = model_init(cfg, torch.Generator().manual_seed(0), device="cuda")
     calib = calibration_batches(cfg, 32, 512, batch=8)
     env = InferenceEnv(batch=16, seq=128, mode="prefill", hw=None)
     print(f"{cfg.name}: layers={cfg.num_layers} d_model={cfg.d_model} "
-          f"d_ff={cfg.d_ff} ssm_heads={cfg.ssm_heads} dtype={cfg.dtype}, "
+          f"d_ff={cfg.d_ff} ssm_heads={cfg.ssm_heads} experts="
+          f"{cfg.num_experts} ({cfg.moe_prune_unit} mode) dtype={cfg.dtype}, "
           f"targets {targets}")
 
     def run():

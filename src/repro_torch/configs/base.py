@@ -10,14 +10,18 @@ flash path (the hand-written flash-attention kernel on the card),
 ``"auto"`` runs it only when the query and key lengths both exceed 2048,
 and every other value, ``"flash_pallas"`` included, runs dense attention.
 The serving engine's prefill takes the flash path whatever it says
-(``serve.engine``). The port's forward runs dense self-attention stacks
-and Mamba-2 (SSD) stacks; ``models.transformer`` rejects the families it
-does not run yet.
+(``serve.engine``). The port's forward runs dense self-attention stacks,
+mixture-of-experts stacks and Mamba-2 (SSD) stacks; ``models.transformer``
+rejects the families it does not run yet.
+
+``ShapeConfig`` and ``LM_SHAPES`` are the reference's input-shape cells,
+which ``configs.shapes_for`` assigns to an architecture.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Tuple
 
 
 @dataclass(frozen=True)
@@ -98,3 +102,22 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell: sequence length, global batch and regime."""
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # train | prefill | decode
+    microbatches: int = 1  # gradient-accumulation steps (train only)
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+LM_SHAPES: Tuple[ShapeConfig, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                      LONG_500K)

@@ -1,0 +1,9 @@
+"""qwen2-72b [dense] — GQA, QKV bias [arXiv:2407.10671; hf]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-72b", family="dense", num_layers=80, d_model=8192,
+    num_heads=64, num_kv_heads=8, d_ff=29568, vocab_size=152064,
+    qkv_bias=True, rope_theta=1000000.0,
+    source="arXiv:2407.10671",
+)

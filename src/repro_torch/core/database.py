@@ -9,17 +9,19 @@ one fused downdate launch per step for the whole stack. ``batched=False``
 keeps the serial per-module path as the equivalence reference.
 
 ``SnapshotCache`` keeps the stacked snapshots on the device so SPDY's
-per-candidate stitch is one gather + scatter per module kind.
+per-candidate stitch is one gather + scatter per module kind; a per-expert
+kind (MoE) writes ``leaf[layer, expert]``.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..runtime.device import DeviceLike, resolve_device
+from ..runtime.device import DeviceLike, resolve_device, synchronize
 from .obs import (build_hessian, module_drop_error, module_drop_errors,
                   prune_structured, prune_structured_batched)
 from .structures import (UNITS, PrunableModule, copy_tree, get_matrix,
@@ -28,6 +30,18 @@ from .structures import (UNITS, PrunableModule, copy_tree, get_matrix,
 # damping-escalation ladder: retries beyond the caller's damp, each one
 # decade up (damp * 10**k) — bounded so a hopeless Hessian fails loudly
 DAMP_RETRIES = 4
+
+# the snapshots' round trip through host memory: bytes and seconds of the
+# database's fetch of each chunk's float16 snapshots (timed from a
+# synchronize, so Algorithm 1's queued work is not counted) and of
+# SnapshotCache's upload; a caller zeroes it with reset_snapshot_traffic
+SNAPSHOT_TRAFFIC = {"fetch_bytes": 0, "fetch_s": 0.0,
+                    "upload_bytes": 0, "upload_s": 0.0}
+
+
+def reset_snapshot_traffic() -> None:
+    SNAPSHOT_TRAFFIC.update(fetch_bytes=0, fetch_s=0.0, upload_bytes=0,
+                            upload_s=0.0)
 
 
 def damp_schedule(damp: float, retries: int = DAMP_RETRIES) -> List[float]:
@@ -88,7 +102,11 @@ def _prune_healed(prune_fn, Ws, Hraw, *, group_size, n_remove, levels,
         res = prune_fn(Ws, Hinv, group_size=group_size, n_remove=n_remove,
                        levels=levels)
         # sync: DB materialization — fetched once per chunk per rung
+        synchronize(res.snapshots.device)
+        t0 = time.perf_counter()
         snaps16 = res.snapshots.cpu().numpy()
+        SNAPSHOT_TRAFFIC["fetch_s"] += time.perf_counter() - t0
+        SNAPSHOT_TRAFFIC["fetch_bytes"] += snaps16.nbytes
         errs = res.errors.cpu().numpy()
         orders = res.order.cpu().numpy()
         bad = _non_finite_report(names, levels, errs, snaps16)
@@ -238,12 +256,31 @@ class SnapshotCache:
             "kind": kind,
             "names": [m.mod.name for m in mdbs],
             "levels": np.asarray(levels),
-            "layer_idx": torch.tensor([m.mod.layer for m in mdbs],
-                                      device=dev),
-            # (M, n_levels, d_in, d_out) float16, uploaded once
-            "snaps": torch.from_numpy(
-                np.stack([m.snapshots for m in mdbs])).to(dev),
+            # the leaf index of each module: (layer,) or (layer, expert)
+            "index": self._leaf_index(kind, mdbs, dev),
+            "snaps": self._upload([m.snapshots for m in mdbs], dev),
         } for (kind, levels), mdbs in by_key.items()]
+
+    @staticmethod
+    def _leaf_index(kind, mdbs, dev):
+        idx = [torch.tensor([m.mod.layer for m in mdbs], device=dev)]
+        if UNITS[kind].per_expert:
+            idx.append(torch.tensor([m.mod.expert for m in mdbs], device=dev))
+        return tuple(idx)
+
+    @staticmethod
+    def _upload(snapshots: List[np.ndarray], dev) -> torch.Tensor:
+        """(M, n_levels, d_in, d_out) float16 on ``dev``, uploaded once,
+        module by module (no second stacked copy in host memory)."""
+        t0 = time.perf_counter()
+        out = torch.empty((len(snapshots),) + snapshots[0].shape,
+                          dtype=torch.float16, device=dev)
+        for i, snap in enumerate(snapshots):
+            out[i].copy_(torch.from_numpy(snap))
+        synchronize(dev)
+        SNAPSHOT_TRAFFIC["upload_s"] += time.perf_counter() - t0
+        SNAPSHOT_TRAFFIC["upload_bytes"] += out.numel() * out.element_size()
+        return out
 
     def covers(self, assignment: Dict[str, int]) -> bool:
         return all(n in assignment for e in self._groups for n in e["names"])
@@ -263,7 +300,7 @@ class SnapshotCache:
             grp, key = UNITS[e["kind"]].param_path
             leaf = layers[grp][key].clone()
             m = torch.arange(len(e["names"]), device=leaf.device)
-            leaf[e["layer_idx"]] = e["snaps"][m, lvl_idx].to(leaf.dtype)
+            leaf[e["index"]] = e["snaps"][m, lvl_idx].to(leaf.dtype)
             layers[grp][key] = leaf
         return new
 
@@ -288,8 +325,8 @@ class SnapshotCache:
                 leaf = leaf.unsqueeze(0).repeat(P, *([1] * leaf.ndim))
                 stacked.add((grp, key))
             m = torch.arange(len(e["names"]), device=leaf.device)
-            leaf[:, e["layer_idx"]] = e["snaps"][m[None, :], lvl_idx] \
-                .to(leaf.dtype)
+            leaf[(slice(None),) + e["index"]] = \
+                e["snaps"][m[None, :], lvl_idx].to(leaf.dtype)
             layers[grp][key] = leaf
         return new
 

@@ -97,12 +97,16 @@ def oneshot_prune(cfg, params, calib_batches: List[dict],
                   eval_with_loss: bool = True,
                   eval_batches: Optional[List[dict]] = None,
                   damp: float = 1e-4, seed: int = 0, verbose: bool = False,
+                  hessians: Optional[Dict[str, torch.Tensor]] = None,
                   device: DeviceLike = None) -> OneShotResult:
     """One-shot family pruning on ``device`` (params are moved there).
 
     ``latency_kw`` is forwarded to ``build_table``; ``search_pop`` sets
     the SPDY population per round; without ``eval_with_loss`` the search
-    scores candidates by the analytic prior sum.
+    scores candidates by the analytic prior sum. ``hessians``, the
+    ``collect_hessians`` result of these params and batches (say, from a
+    run of the other MoE prune mode, whose modules and captures are the
+    same), replaces the calibration stage.
     """
     dev = resolve_device(device)
     params = tree_to(params, dev)
@@ -119,8 +123,10 @@ def oneshot_prune(cfg, params, calib_batches: List[dict],
             synchronize(dev)
         stages[name] = time.perf_counter() - t0
 
-    with stage("calibration"):
-        hessians = collect_hessians(cfg, params, calib_batches, device=dev)
+    if hessians is None:
+        with stage("calibration"):
+            hessians = collect_hessians(cfg, params, calib_batches,
+                                        device=dev)
     with stage("latency_table"):
         table = build_table(cfg, env, backend=latency_backend, device=dev,
                             **(latency_kw or {}))

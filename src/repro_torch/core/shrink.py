@@ -7,6 +7,9 @@ dead; which twins die with which structures is each kind's
   * attn: removed KV groups -> slice q/k/v projection columns + wo rows
   * ssm:  removed SSD heads -> slice in_z/in_x/conv_x/norm columns and
           in_dt/A_log/D/dt_bias entries + out_proj rows (B/C kept whole)
+  * moe:  per expert as ffn; a fully dropped expert keeps its router
+          column (top-k routing must match the masked model's) but
+          carries no weights and costs no FLOPs
   * ffn:  removed FC2 rows  -> slice wg/wu (or wi/bi) columns + wd rows
 
 A layer whose every unit sits at its full-drop level shrinks to an empty
@@ -36,6 +39,9 @@ from .structures import UNITS, dropped_layers
 
 def _host(t) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+EXPERT_LEAVES = ("wg", "wu", "wd")  # an MoE layer's (L, E, ...) leaves
 
 
 class _HostCtx:
@@ -68,6 +74,12 @@ class _HostCtx:
         return {k: self._dev(_host(v[l]))
                 for k, v in self.layers[grp].items()}
 
+    def layer_leaf(self, grp, key, l):
+        return self._dev(_host(self.layers[grp][key][l]))
+
+    def expert_params(self, grp, l, e):
+        return {k: _host(self.layers[grp][k][l, e]) for k in EXPERT_LEAVES}
+
 
 class _DeviceCtx:
     """Weight source of ``shrink_from_stitched``: the stitched tree's
@@ -95,6 +107,12 @@ class _DeviceCtx:
 
     def at_layer(self, grp, l):
         return self.layer_params(grp, l)
+
+    def layer_leaf(self, grp, key, l):
+        return self.layers[grp][key][l]
+
+    def expert_params(self, grp, l, e):
+        return {k: self.layers[grp][k][l, e] for k in EXPERT_LEAVES}
 
 
 def _shrink_impl(cfg, tree, ctx, device) -> PrunedModel:

@@ -8,18 +8,24 @@ its level grid in structures removed (``grid``; every grid ends at the
 full module drop), and what a level costs (``cost_time`` for the
 analytic model, ``timing_spec`` for the measured backend).
 
-The port has three units:
+The port has the reference's four units:
 
   * ``attn`` — ``W_o``, one group per KV head (q_per_kv query heads x
     head_dim rows);
   * ``ssm`` (Mamba-2/SSD) — ``out_proj``, one group per SSD head
     (ssm_head_dim rows); the in-projection, conv, A/D/dt and norm twins
     shrink with it;
+  * ``moe`` — per-expert ``W_down`` rows, one module ``L{l}.expert{e}``
+    per expert. ``cfg.moe_prune_unit`` sets the granularity: ``"width"``
+    (default) prunes an expert's FFN width on the 0.9^i grid,
+    ``"expert"`` pins each expert's grid to ``(0, d_ff)``, keep or drop
+    the whole expert. A fully dropped expert keeps its router column
+    (the masked and the shrunk model must route alike) but carries no
+    weights and costs no FLOPs;
   * ``ffn`` — ``W_down``, single-row groups.
 
 Each unit also says what it contributes to a layer's KV-cache plan
-(``kv_heads``) and how it shrinks a layer (``shrink_layer``). MoE experts
-are not ported yet.
+(``kv_heads``) and how it shrinks a layer (``shrink_layer``).
 """
 from __future__ import annotations
 
@@ -34,10 +40,10 @@ from ..runtime import costmodel as cm
 
 @dataclass(frozen=True)
 class PrunableModule:
-    name: str                 # "L{layer}.{kind}"
-    kind: str                 # attn | ssm | ffn
+    name: str                 # "L{layer}.{kind}" or "L{layer}.expert{e}"
+    kind: str                 # attn | ssm | moe | ffn
     layer: int
-    expert: int = -1
+    expert: int = -1          # >= 0 for per-expert modules
     weight_key: str = ""      # leaf name of the out-side matrix
     capture_key: str = ""     # capture feeding this matrix
     group_size: int = 1
@@ -56,20 +62,25 @@ class PruneUnit:
 
     kind: str = ""
     param_path: Tuple[str, str] = ("", "")   # (group, leaf) under "layers"
+    per_expert: bool = False                 # leaf carries an (L, E, ...) axis
 
     def layer_modules(self, cfg, layer: int) -> List[PrunableModule]:
         raise NotImplementedError
 
+    def index(self, mod: PrunableModule):
+        """The module's index into its stacked leaf."""
+        return (mod.layer, mod.expert) if self.per_expert else mod.layer
+
     def get_matrix(self, params, mod: PrunableModule) -> torch.Tensor:
         grp, leaf = self.param_path
-        return params["layers"][grp][leaf][mod.layer]
+        return params["layers"][grp][leaf][self.index(mod)]
 
     def set_matrix(self, layers, mod: PrunableModule, w) -> None:
-        """Replace one layer's matrix in a copy of the leaf (the caller's
+        """Replace one module's matrix in a copy of the leaf (the caller's
         tree is never written)."""
         grp, leaf = self.param_path
         new = layers[grp][leaf].clone()
-        new[mod.layer] = w.to(device=new.device, dtype=new.dtype)
+        new[self.index(mod)] = w.to(device=new.device, dtype=new.dtype)
         layers[grp][leaf] = new
 
     def get_capture(self, layer_caps, mod: PrunableModule):
@@ -235,6 +246,72 @@ class SsmUnit(PruneUnit):
         lp["ln1"] = ctx.at_layer("ln1", layer)
 
 
+class MoeUnit(PruneUnit):
+    kind = "moe"
+    param_path = ("moe", "wd")
+    per_expert = True
+
+    def layer_modules(self, cfg, layer):
+        if not cfg.num_experts:
+            return []
+        # whole-expert granularity: pin each expert's grid to keep-or-drop
+        levels = ((0, cfg.d_ff)
+                  if cfg.moe_prune_unit == "expert" else None)
+        return [PrunableModule(
+            name=f"L{layer}.expert{e}", kind="moe", layer=layer, expert=e,
+            weight_key="wd", capture_key="wd_in", group_size=1,
+            n_structures=cfg.d_ff, levels=levels)
+            for e in range(cfg.num_experts)]
+
+    def get_capture(self, layer_caps, mod):
+        """The expert's dispatch slots (C, f) and which of them a token
+        filled (the rest hold zeros and count for no sample)."""
+        return (layer_caps["ffn"]["wd_in"][mod.expert],
+                layer_caps["ffn"]["wd_valid"][mod.expert])
+
+    def cost_time(self, cfg, env, removed):
+        return cm.moe_expert_time(cfg, env, cfg.d_ff - removed)
+
+    def timing_spec(self, cfg, env, removed):
+        f_live = int(cfg.d_ff - removed)
+        if f_live <= 0:
+            return None
+        tokens = max(8, int(env.tokens * cfg.num_experts_per_tok
+                            / cfg.num_experts * 1.25))
+        return {"module": "ffn", "f_live": f_live, "tokens": tokens}
+
+    def shrink_layer(self, cfg, ctx, layer, lcfg, lp):
+        if f"L{layer}.expert0" not in ctx.assignment:
+            return
+        experts = []
+        for e in range(cfg.num_experts):
+            name = f"L{layer}.expert{e}"
+            mdb = ctx.db[name]
+            removed = ctx.assignment[name]
+            kept = mdb.kept_structures(removed)
+            if len(kept) == 0:
+                # a fully dropped expert stays visible to the router:
+                # deleting its column would change which experts win the
+                # top-k (and the weights' normalisation) against the
+                # masked model; it carries no weights and no compute
+                experts.append(None)
+                lcfg.expert_ff.append(0)
+                continue
+            ep = ctx.expert_params("moe", layer, e)
+            experts.append({
+                "wg": ctx.take(ep["wg"], kept, 1),
+                "wu": ctx.take(ep["wu"], kept, 1),
+                "wd": ctx.take(ctx.out_mat(mdb, removed, ep["wd"]), kept, 0),
+            })
+            lcfg.expert_ff.append(len(kept))
+        if any(ep is not None for ep in experts):
+            lp["moe"] = {"router": ctx.layer_leaf("moe", "router", layer),
+                         "experts": experts}
+            lp["ln2"] = ctx.at_layer("ln2", layer)
+        else:
+            lcfg.expert_ff = []  # the whole MoE module dropped
+
+
 class FfnUnit(PruneUnit):
     kind = "ffn"
     param_path = ("ffn", "wd")
@@ -282,7 +359,7 @@ class FfnUnit(PruneUnit):
 
 # kind -> singleton; iteration order is the within-layer registry order
 UNITS: Dict[str, PruneUnit] = {
-    u.kind: u for u in (AttnUnit(), SsmUnit(), FfnUnit())}
+    u.kind: u for u in (AttnUnit(), SsmUnit(), MoeUnit(), FfnUnit())}
 
 
 def registry(cfg) -> List[PrunableModule]:
@@ -318,7 +395,8 @@ def get_capture(captures: Dict, mod: PrunableModule):
     """The calibration inputs (X (N, d_in), valid) of a module, from
     forward captures stacked over layers (nested per group, as
     ``captures["attn"]["wo_in"]``, or at the layer level, as
-    ``captures["ssm_out_in"]``)."""
+    ``captures["ssm_out_in"]``). ``valid`` is None, or for an expert the
+    (N,) mask of its dispatch slots that a token filled."""
     return UNITS[mod.kind].get_capture(_at_layer(captures, mod.layer), mod)
 
 

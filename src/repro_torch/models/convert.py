@@ -2,8 +2,10 @@
 the port's params.
 
 Both packages store the same nested dict with the same layouts (stacked
-layer leaves, ``y = x @ W``), so the bridge is a tensor copy per leaf
-and weights are never re-drawn. Convert a JAX tree first with
+layer leaves, ``y = x @ W``; an MoE layer's ``moe.router`` (L, d, E) and
+its experts' ``moe.wg``/``moe.wu`` (L, E, d, f) and ``moe.wd``
+(L, E, f, d)), so the bridge is a tensor copy per leaf and weights are
+never re-drawn. Convert a JAX tree first with
 ``jax.tree.map(np.asarray, params)``.
 """
 from __future__ import annotations

@@ -4,10 +4,10 @@ After a ZipLM shrink, layers have different head counts and FFN widths
 (and some modules are gone), so the stacked per-layer leaves no longer
 apply. This module runs per-layer parameter dicts in a Python loop over
 the same primitive ops: this is where the structural speedup shows up
-(smaller matmuls, skipped modules). It runs the attention, FFN and SSD
-branches (an SSD layer through ``models.ssm.ssm_apply`` at its pruned
-width); MoE layers raise (ROADMAP Queue 1 item 10). The decode runtime
-covers attention+FFN decoders only, as the reference's does.
+(smaller matmuls, skipped modules). It runs the attention, FFN, MoE and
+SSD branches (an SSD layer through ``models.ssm.ssm_apply`` at its pruned
+width, an MoE layer through ``_moe_forward``). The decode runtime covers
+attention + FFN/MoE decoders, as the reference's does.
 """
 from __future__ import annotations
 
@@ -15,12 +15,14 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List
 
 import torch
+import torch.nn.functional as F
 
 from . import attention as attn_mod
 from .ffn import ffn_apply
 from .layers import apply_norm, compute_dtype, embed_tokens, unembed
+from .moe import route
 from .ssm import ssm_apply
-from .transformer import init_cache
+from .transformer import check_supported, init_cache
 
 
 @dataclass
@@ -28,7 +30,7 @@ class PrunedLayer:
     kv_groups: int = 0        # attention KV groups remaining (0 = dropped)
     d_ff: int = 0             # FFN intermediate remaining (0 = dropped)
     ssm_heads: int = 0        # SSD heads remaining (0 = dropped)
-    expert_ff: List[int] = field(default_factory=list)  # MoE (not ported)
+    expert_ff: List[int] = field(default_factory=list)  # per expert, 0 = dropped
     params: Dict[str, Any] = field(default_factory=dict)
 
 
@@ -61,18 +63,40 @@ def _vcfg(cfg, lcfg: PrunedLayer):
                        head_dim=cfg.resolved_head_dim)
 
 
-def _check_layer(lcfg: PrunedLayer) -> None:
-    if lcfg.expert_ff:
-        raise NotImplementedError(
-            "pruned MoE layers are not ported yet (ROADMAP Queue 1 item 10)")
-
-
 def _has_attn(lcfg: PrunedLayer) -> bool:
     return lcfg.kv_groups > 0 and "attn" in lcfg.params
 
 
+def _moe_forward(cfg, lp, x):
+    """A pruned MoE layer, its experts of different widths. A fully
+    dropped expert keeps its router column and a ``None`` compute slot,
+    so the top-k over all E columns (and the normalisation of the chosen
+    weights) is the masked model's: a dead expert can win a slot and
+    absorb routing weight, it only contributes nothing. Each live expert
+    runs on every token (a dense gather, the reference's), weighted by
+    its routing weight; no token is dropped, unlike the dense model's
+    capacity dispatch."""
+    dt = x.dtype
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    k = min(cfg.num_experts_per_tok, lp["router"].shape[-1])
+    _, topw, topi = route(lp["router"], xf, k)
+    out = torch.zeros_like(xf)
+    for e, ep in enumerate(lp["experts"]):
+        if ep is None:  # dropped: routable, no contribution, no FLOPs
+            continue
+        w_e = torch.where(topi == e, topw, 0.0).sum(-1).to(dt)  # (t,)
+        h = F.silu(xf @ ep["wg"].to(dt)) * (xf @ ep["wu"].to(dt))
+        out = out + w_e[:, None] * (h @ ep["wd"].to(dt))
+    return out.reshape(b, s, d)
+
+
 def _ffn_block(cfg, lcfg: PrunedLayer, x):
-    if lcfg.d_ff > 0 and "ffn" in lcfg.params:
+    """The layer's FFN or MoE residual branch, if any of it is left."""
+    if lcfg.expert_ff:
+        h2 = apply_norm(cfg, lcfg.params["ln2"], x)
+        x = x + _moe_forward(cfg, lcfg.params["moe"], h2)
+    elif lcfg.d_ff > 0 and "ffn" in lcfg.params:
         h2 = apply_norm(cfg, lcfg.params["ln2"], x)
         x = x + ffn_apply(cfg, lcfg.params["ffn"], h2)
     return x
@@ -85,12 +109,14 @@ def _head(pm: "PrunedModel", x):
 
 
 def forward_pruned(pm: PrunedModel, tokens) -> torch.Tensor:
-    """Forward over heterogeneous pruned layers -> fp32 logits (B,S,V)."""
+    """Forward over heterogeneous pruned layers -> fp32 logits (B,S,V).
+    Raises for a family the port does not run (a hybrid layer's branches
+    would need the reference's averaging)."""
     cfg = pm.cfg
+    check_supported(cfg)
     tokens = tokens.to(pm.globals_["embed"]["table"].device)
     x = embed_tokens(cfg, pm.globals_["embed"], tokens)
     for lcfg in pm.layers:
-        _check_layer(lcfg)
         if _has_attn(lcfg):
             h = apply_norm(cfg, lcfg.params["ln1"], x)
             a, _ = attn_mod.self_attention(_vcfg(cfg, lcfg),
@@ -111,7 +137,7 @@ def _check_decodable(cfg):
     if cfg.family == "ssm" or cfg.hybrid or cfg.encoder_decoder \
             or cfg.cross_attn_every:
         raise NotImplementedError(
-            "pruned decode runtime covers attention+FFN decoders only; "
+            "pruned decode runtime covers attention+FFN/MoE decoders only; "
             f"family={cfg.family!r} hybrid={cfg.hybrid} "
             f"enc-dec={cfg.encoder_decoder} needs the dense runtime")
 
@@ -163,7 +189,6 @@ def prefill_pruned(pm: PrunedModel, tokens, max_len: int, *,
     tokens = tokens.to(pm.globals_["embed"]["table"].device)
     x = embed_tokens(cfg, pm.globals_["embed"], tokens)
     for i, lcfg in enumerate(pm.layers):
-        _check_layer(lcfg)
         if _has_attn(lcfg):
             vcfg = _vcfg(cfg, lcfg)
             lp = lcfg.params
@@ -193,7 +218,6 @@ def decode_step_pruned(pm: PrunedModel, cache, tokens):
     tokens = tokens.to(pm.globals_["embed"]["table"].device)
     x = embed_tokens(cfg, pm.globals_["embed"], tokens, positions=positions)
     for i, lcfg in enumerate(pm.layers):
-        _check_layer(lcfg)
         if _has_attn(lcfg):
             h = apply_norm(cfg, lcfg.params["ln1"], x)
             a, _ = attn_mod.self_attention(

@@ -1,11 +1,12 @@
 """Transformer stack: init, full-sequence forward (train / prefill) and
 single-token decode for dense self-attention models (GPT-2/BERT/llama-style
-blocks) and Mamba-2 (SSD) stacks.
+blocks), mixture-of-experts models (the FFN of every block a
+``models.moe`` layer) and Mamba-2 (SSD) stacks.
 
 Per-layer weights are stacked along a leading layer axis, as in the JAX
 package; the forward and decode are Python loops over layers where the
-reference scans. MoE, hybrid, cross-attention and frontends are not
-ported yet and are rejected up front.
+reference scans. Hybrid, cross-attention and frontends are not ported
+yet and are rejected up front.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 from ..runtime.device import DeviceLike, resolve_device
 from . import attention as attn_mod
 from . import ffn as ffn_mod
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import (apply_norm, compute_dtype, dense_init, embed_tokens,
                      embedding_init, norm_init, unembed)
@@ -24,7 +26,7 @@ from .layers import (apply_norm, compute_dtype, dense_init, embed_tokens,
 def check_supported(cfg) -> None:
     ssm = cfg.family == "ssm"
     unsupported = {
-        "num_experts": cfg.num_experts,
+        "num_experts in the ssm family": cfg.num_experts and ssm,
         "ssm_state outside the ssm family": cfg.ssm_state and not ssm,
         "family='ssm' without ssm_state": ssm and not cfg.ssm_state,
         "hybrid": cfg.hybrid, "encoder_decoder": cfg.encoder_decoder,
@@ -35,8 +37,8 @@ def check_supported(cfg) -> None:
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense self-attention and Mamba-2 "
-            f"stacks only (not ported yet: {', '.join(bad)})")
+            f"{cfg.name}: the port runs dense and MoE self-attention and "
+            f"Mamba-2 stacks only (not ported yet: {', '.join(bad)})")
 
 
 def block_kind(cfg) -> str:
@@ -59,8 +61,11 @@ def model_init(cfg, generator: Optional[torch.Generator] = None,
     else:
         layers = {"ln1": norm_init(cfg, L),
                   "attn": attn_mod.attention_init(cfg, g, L),
-                  "ln2": norm_init(cfg, L),
-                  "ffn": ffn_mod.ffn_init(cfg, g, L)}
+                  "ln2": norm_init(cfg, L)}
+        if cfg.num_experts:
+            layers["moe"] = moe_mod.moe_init(cfg, g, L)
+        else:
+            layers["ffn"] = ffn_mod.ffn_init(cfg, g, L)
     params: Dict[str, Any] = {
         "embed": embed,
         "layers": layers,
@@ -84,8 +89,17 @@ def _layer(layers, i: int):
             for grp, sub in layers.items()}
 
 
+def _ffn_or_moe(cfg, lp, h2, capture=None):
+    """The block's FFN: a dense FFN, or an MoE layer (whose captures
+    ``wd_in``/``wd_valid`` the reference also files under ``ffn``).
+    Returns (y, aux)."""
+    if cfg.num_experts:
+        return moe_mod.moe_apply(cfg, lp["moe"], h2, capture=capture)
+    return ffn_mod.ffn_apply(cfg, lp["ffn"], h2, capture=capture), None
+
+
 def _self_block(cfg, lp, x, *, build_cache: bool, capture: bool):
-    """One standard block. Returns (x, cache_kv, captures)."""
+    """One standard block. Returns (x, aux, cache_kv, captures)."""
     cap_attn = {} if capture else None
     h = apply_norm(cfg, lp["ln1"], x)
     a, kv = attn_mod.self_attention(cfg, lp["attn"], h, capture=cap_attn)
@@ -93,13 +107,13 @@ def _self_block(cfg, lp, x, *, build_cache: bool, capture: bool):
     x = x + a
     h2 = apply_norm(cfg, lp["ln2"], x)
     cap_ffn = {} if capture else None
-    x = x + ffn_mod.ffn_apply(cfg, lp["ffn"], h2, capture=cap_ffn)
-    return x, cache_kv, {"attn": cap_attn, "ffn": cap_ffn}
+    f, aux = _ffn_or_moe(cfg, lp, h2, capture=cap_ffn)
+    return x + f, aux, cache_kv, {"attn": cap_attn, "ffn": cap_ffn}
 
 
 def _ssm_block(cfg, lp, x, *, build_cache: bool, capture: bool):
-    """One Mamba-2 block. Returns (x, cache_ssm, captures); the capture
-    ``ssm_out_in`` sits at the layer level, as in the reference."""
+    """One Mamba-2 block. Returns (x, aux, cache_ssm, captures); the
+    capture ``ssm_out_in`` sits at the layer level, as in the reference."""
     caps: Dict[str, Any] = {}
     h = apply_norm(cfg, lp["ln1"], x)
     y = ssm_mod.ssm_apply(cfg, lp["ssm"], h,
@@ -108,7 +122,7 @@ def _ssm_block(cfg, lp, x, *, build_cache: bool, capture: bool):
     cache = None
     if build_cache:
         y, cache = y
-    return x + y, cache, caps
+    return x + y, None, cache, caps
 
 
 def _stack(trees):
@@ -127,10 +141,13 @@ def forward(cfg, params, tokens: torch.Tensor, *, mode: str = "train",
     the decode cache: for attention stacks ``cache = {k, v}`` of shape
     (L, B, S, HKV, D), ring-rolled for sliding windows; for SSM stacks
     ``cache_ssm = {state, conv_x, conv_bc}`` stacked over layers).
-    Returns dict(logits (B,S,V) fp32, aux, the cache, and with
+    Returns dict(logits (B,S,V) fp32, aux (the mean over layers of the
+    MoE load-balancing loss; 0 without experts), the cache, and with
     ``capture`` the per-layer module inputs stacked with a leading layer
-    axis: ``captures[group][key]`` for attention stacks,
-    ``captures["ssm_out_in"]`` for SSM stacks).
+    axis: ``captures[group][key]`` for attention stacks (an MoE layer's
+    ``captures["ffn"]["wd_in"]`` is (L, E, C, f), with
+    ``captures["ffn"]["wd_valid"]`` (L, E, C)), ``captures["ssm_out_in"]``
+    for SSM stacks).
     """
     check_supported(cfg)
     build_cache = mode == "prefill"
@@ -138,15 +155,18 @@ def forward(cfg, params, tokens: torch.Tensor, *, mode: str = "train",
     tokens = tokens.to(dev)
     x = embed_tokens(cfg, params["embed"], tokens)
     block = _ssm_block if block_kind(cfg) == "ssm" else _self_block
-    caps, caches = [], []
+    caps, caches, auxes = [], [], []
     for i in range(cfg.num_layers):
-        x, c_layer, c = block(cfg, _layer(params["layers"], i), x,
-                              build_cache=build_cache, capture=capture)
+        x, aux, c_layer, c = block(cfg, _layer(params["layers"], i), x,
+                                   build_cache=build_cache, capture=capture)
         caps.append(c)
         caches.append(c_layer)
+        if aux is not None:
+            auxes.append(aux)
     x = apply_norm(cfg, params["final_norm"], x)
     out = {"logits": unembed(cfg, params["embed"], params.get("head", {}), x),
-           "aux": torch.zeros((), device=dev)}
+           "aux": (torch.stack(auxes).mean() if auxes
+                   else torch.zeros((), device=dev))}
     if capture:
         out["captures"] = _stack(caps)
     if build_cache and block_kind(cfg) == "ssm":
@@ -245,7 +265,7 @@ def decode_step(cfg, params, cache, tokens):
                                        cache_pos=pos)
         x = x + a
         h2 = apply_norm(cfg, lp["ln2"], x)
-        x = x + ffn_mod.ffn_apply(cfg, lp["ffn"], h2)
+        x = x + _ffn_or_moe(cfg, lp, h2)[0]
     x = apply_norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params["embed"], params.get("head", {}), x)
     return logits, {**cache, "pos": pos + 1}

@@ -122,6 +122,14 @@ def ffn_time(cfg, env: InferenceEnv, f_live: int,
     return t
 
 
+def moe_expert_time(cfg, env: InferenceEnv, f_live: int) -> float:
+    """One expert's FFN at the expected per-expert token count, each
+    expert on one chip (expert parallelism across the env's tp)."""
+    c = env.tokens * cfg.num_experts_per_tok / cfg.num_experts * 1.25
+    return ffn_time(cfg.replace(num_experts=0), env.replace(tp=1),
+                    f_live, tokens=max(1.0, c))
+
+
 def ssm_time(cfg, env: InferenceEnv, heads: int) -> float:
     """Mamba-2 block with ``heads`` of its SSD heads remaining: the input
     and output projections, and the recurrent state (decode) or the

@@ -40,7 +40,7 @@ routes each request by its latency class to the smallest member target
 that meets the class's speedup demand.
 
 The reference's ``serve.step`` fault site and its retry are not ported
-(ROADMAP Queue 1 item 11); non-finite logits raise.
+(ROADMAP Queue 1 item 5, robustness); non-finite logits raise.
 """
 from .engine import (DenseServeModel, PrunedServeModel, RequestRecord,
                      ServeEngine, ServeReport)

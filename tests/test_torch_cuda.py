@@ -7,7 +7,8 @@ PyTorch is installed::
 
 TF32 is off, so the plain versions' products are full fp32. Tolerances:
 hessian_accum 1e-4·√N (the reference's accumulator tolerance; bf16 input
-converts exactly to fp32 on both sides), obs_downdate 1e-5, flash
+converts exactly to fp32 on both sides; also over an MoE expert's
+dispatch slots with the unfilled rows zeroed), obs_downdate 1e-5, flash
 attention 2e-5 fp32 and 2e-2 bf16 (the reference's); the SSD intra-chunk
 pass 1e-4 in fp32 (fp32 sums of up to a chunk of terms in another order)
 and 2e-2 of the output's scale with bf16 B and C (the plain version
@@ -114,6 +115,29 @@ def test_hessian_accum_kernel_gives_the_same_bits_twice(cuda_device, n, d):
     assert torch.equal(hessian_accum(x), hessian_accum(x))
 
 
+@pytest.mark.cuda
+def test_hessian_accum_kernel_takes_an_experts_masked_rows(cuda_device):
+    """One expert's dispatch slots in the full-width Phi-3.5-MoE
+    calibration (640 slots of d_ff 6400), the slots no token filled
+    zeroed by ``core.hessian.xtx``: the kernel against its plain version,
+    and against the valid rows alone."""
+    from repro_torch.core.hessian import xtx
+    n, d = 640, 6400
+    x = _hessian_x(n, d, torch.float32, cuda_device, 5)
+    valid = torch.from_numpy(np.random.default_rng(6).random(n) > 0.3
+                             ).to(cuda_device)
+    acc = _hessian_x(d, d, torch.float32, cuda_device, 7)
+    before = hessian_accum.launches
+    got = xtx(x, valid, acc=acc)
+    torch.cuda.synchronize()
+    assert hessian_accum.launches == before + 1
+    tol = {"atol": 1e-4 * n ** 0.5, "rtol": 1e-4}
+    torch.testing.assert_close(
+        got, hessian_accum_plain(x * valid[:, None].float(), acc), **tol)
+    torch.testing.assert_close(
+        got, hessian_accum_plain(x[valid].contiguous(), acc), **tol)
+
+
 def _downdate_inputs(M, d_in, d_out, gs, seed, d_live=None):
     """Module-stacked inputs; with d_live, rows/cols past it are dead
     (zero), as live-set compaction leaves them."""
@@ -164,6 +188,29 @@ def test_obs_downdate_kernel_matches_plain(cuda_device, case):
 
 
 @pytest.mark.cuda
+def test_obs_downdate_kernel_takes_a_layers_sixteen_experts(cuda_device):
+    """A Phi-3.5-MoE layer's 16 experts as one stack, (M, d_in, d_out, gs)
+    = (16, 6400, 4096, 1): the only gs = 1 stack with d_in above 3072
+    (inputs drawn on the card; a host draw of Hinv would take minutes)."""
+    M, d_in, d_out = 16, 6400, 4096
+    g = torch.Generator(device=cuda_device).manual_seed(16)
+    W, Hinv = (torch.randn(shape, device=cuda_device, generator=g)
+               for shape in ((M, d_in, d_out), (M, d_in, d_in)))
+    A, KW, KH = (torch.randn(shape, device=cuda_device, generator=g)
+                 for shape in ((M, d_in, 1), (M, 1, d_out), (M, 1, d_in)))
+    keep = (torch.rand((M, d_in), device=cuda_device, generator=g) > 0.3
+            ).float()
+    want = obs_downdate_plain(W, Hinv, A, KW, KH, keep)
+    before = obs_downdate.launches
+    got = obs_downdate(W, Hinv, A, KW, KH, keep)
+    torch.cuda.synchronize()
+    assert got[0] is W and got[1] is Hinv
+    assert obs_downdate.launches == before + 1
+    for g_, w in zip(got, want):
+        torch.testing.assert_close(g_, w, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
 def test_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda_device):
     x = torch.randn((64, 32), device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
@@ -186,7 +233,8 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda_device):
 # D = 16 and 32 with ragged lengths, one query against 300 keys, fewer
 # than 16 keys, non-causal ragged, causal with Sq > Sk (rows without keys,
 # no band skip), and a window whose first visited key tile is wholly
-# masked for the tile's later rows (q_offset 300, window 20)
+# masked for the tile's later rows (q_offset 300, window 20); last
+# Phi-3.5-MoE's prefill of 512 tokens (GQA 32:8 at head dim 128)
 FLASH_CASES = [(2, 128, 128, 4, 4, 64, True, 0, None),
                (1, 256, 256, 8, 2, 64, True, 0, None),
                (2, 128, 128, 4, 1, 128, True, 64, None),
@@ -205,7 +253,8 @@ FLASH_CASES = [(2, 128, 128, 4, 4, 64, True, 0, None),
      (2, 9, 12, 4, 2, 64, True, 0, None),
      (2, 77, 130, 4, 4, 32, False, 0, None),
      (2, 200, 130, 4, 2, 16, True, 0, None),
-     (2, 128, 500, 4, 2, 64, True, 20, 300)]
+     (2, 128, 500, 4, 2, 64, True, 20, 300),
+     (1, 512, 512, 32, 8, 128, True, 0, None)]  # Phi-3.5-MoE's prefill
 
 
 @pytest.mark.cuda

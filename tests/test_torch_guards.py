@@ -6,7 +6,7 @@ import pathlib
 import pytest
 import torch
 
-from repro_torch.configs import GPT2_SMALL, MAMBA2_2P7B
+from repro_torch.configs import GPT2_SMALL, MAMBA2_2P7B, smoke_config
 from repro_torch.core.database import SnapshotCache, build_database
 from repro_torch.core.hessian import collect_hessians
 from repro_torch.core.latency import build_table
@@ -42,7 +42,10 @@ def test_port_files_are_found():
     names = {p.name for p in PORT_FILES}
     assert {"oneshot.py", "obs_downdate.py", "flash_attention.py",
             "shrink.py", "engine.py", "ssm.py", "ssd_scan.py",
-            "mamba2_2p7b.py", "chip_smoke.py", "bench_torch_ssd.py"} <= names
+            "mamba2_2p7b.py", "chip_smoke.py", "bench_torch_ssd.py",
+            "moe.py", "phi35_moe_42b.py", "dbrx_132b.py", "bert.py",
+            "qwen2_72b.py", "qwen15_110b.py", "internlm2_20b.py",
+            "h2o_danube_1p8b.py", "profile_torch_oneshot.py"} <= names
 
 
 ENV = InferenceEnv(batch=2, seq=8, hw=None)
@@ -50,8 +53,14 @@ TINY = GPT2_SMALL.replace(num_layers=1, d_model=32, d_ff=64, num_heads=2,
                           num_kv_heads=2, vocab_size=64)
 MAMBA = MAMBA2_2P7B.replace(num_layers=1, d_model=32, ssm_state=8,
                             ssm_head_dim=16, ssm_chunk=8, vocab_size=64)
+MOE = smoke_config("phi3.5-moe-42b-a6.6b")
 ENTRY_POINTS = {
     "model_init": lambda: model_init(TINY),
+    "model_init[phi3.5-moe]": lambda: model_init(MOE),
+    "oneshot_prune[phi3.5-moe]": lambda: oneshot_prune(MOE, {}, [], ENV,
+                                                       [2.0]),
+    "shrink[phi3.5-moe]": lambda: shrink(MOE, {"layers": {}}, {}, {}),
+    "SnapshotCache[phi3.5-moe]": lambda: SnapshotCache(MOE, {}),
     "model_init[mamba2]": lambda: model_init(MAMBA),
     "oneshot_prune[mamba2]": lambda: oneshot_prune(MAMBA, {}, [], ENV,
                                                    [2.0]),

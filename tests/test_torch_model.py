@@ -107,6 +107,9 @@ def test_model_init_is_seeded_and_shaped():
 
 
 def test_unported_families_are_rejected():
-    cfg = port_cfg(REF_TINY).replace(num_experts=4, num_experts_per_tok=2)
-    with pytest.raises(NotImplementedError, match="num_experts"):
-        model_init(cfg, device="cpu")
+    """MoE is ported (tests/test_torch_moe.py); the hybrid block and
+    cross-attention are not."""
+    for kw, what in (({"hybrid": True, "ssm_state": 16}, "hybrid"),
+                     ({"cross_attn_every": 2}, "cross_attn_every")):
+        with pytest.raises(NotImplementedError, match=what):
+            model_init(port_cfg(REF_TINY).replace(**kw), device="cpu")
