@@ -31,7 +31,9 @@ Phases (any failure exits non-zero and prints no result):
    logits, Hessians, database errors and greedy tokens, and the
    reference's smoke Phi-3.5-MoE (2 layers, 4 experts top-2) in both MoE
    prune modes: logits, Hessians, database errors, member losses and
-   served tokens;
+   served tokens; and 5 steps of ``make_train_step`` on the small GPT-2
+   (the dense model as teacher, a member's masks, 2 microbatches): every
+   metric within 1e-3 relative, the masked rows exactly 0 on both;
 4. the main path: ``oneshot_prune`` on full-width GPT-2 small (12 layers,
    d_model 768, 12 heads, d_ff 3072, vocab 50257) with seeded weights,
    numpy calibration batches, a latency table measured on the card and
@@ -53,6 +55,22 @@ Phases (any failure exits non-zero and prints no result):
    per-request decoding, KV bytes against the shrunk structures; then
    the serving CLI (``repro_torch.launch.serve --arch gpt2-small``) as a
    user runs it, which must launch the flash kernel too;
+8. (run right after phase 5, on phase 4's dense model, database and
+   prior-scored family) the distillation trainer: the 2x member stitched,
+   masked by ``masks_from_assignment`` and finetuned against the dense
+   model with the reference's gradual defaults (lr 8e-5, 5 warm-up steps,
+   40 steps, logit 1.0 and token 0.5 distillation) on batches of 8 x 512,
+   checkpoints every 20 steps. Run A takes 40 steps; run B stops at 30 and
+   a new trainer resumes from its step-20 checkpoint to 40: params, m, v
+   and count equal to run A's bit for bit. Masked rows exactly 0 after A
+   and in the restored checkpoint; A's member shrunk against its masked
+   forward; then, with the launch counts zeroed before run A and read
+   after, the Hessians and the database rebuilt on A's member (the
+   already-removed structures must come first in every new removal
+   order, at error 0); last the training CLI (``python -m
+   repro_torch.launch.train --arch gpt2-small --steps 10 --batch 8 --seq
+   512``) must exit 0. Prints the median step time, tokens/s, peak
+   memory, the checkpoint's bytes and its save and restore seconds;
 6. the Mamba-2 slice: ``oneshot_prune`` on Mamba-2 2.7B at full width
    (d_model 2560, 80 SSD heads x 64, state 128, chunk 128, vocab 50280)
    with 8 of its 64 layers, seeded weights, the same calibration, table
@@ -81,7 +99,9 @@ Phases (any failure exits non-zero and prints no result):
    of their round trip through host memory.
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 product on the
-card is a full fp32 product and the fp32 tolerances below hold.
+card is a full fp32 product and the fp32 tolerances below hold. The train
+step runs under deterministic algorithms, which need
+``CUBLAS_WORKSPACE_CONFIG`` before the first cuBLAS call: it is set first.
 
 Prints the card's name and power limit, per-kernel numbers and stage
 times, then one JSON line of kernels and, last, the device JSON line.
@@ -828,6 +848,61 @@ def check_small_slice(torch):
         print(f"small slice: {t}x member loss card {lg:.6f} CPU {lc:.6f} "
               f"(tol 1e-3 relative)")
         check(abs(lg - lc) <= 1e-3 * abs(lc), f"{t}x member losses differ")
+    check_small_train(torch, cfg, p_cpu, db_cpu, res[2.0].assignment)
+
+
+def rows_zero(torch, params, db, assignment) -> bool:
+    """Every removed structure's out-side rows are exactly 0."""
+    import numpy as np
+    from repro_torch.core.structures import UNITS
+    for name, removed in assignment.items():
+        mod = db[name].mod
+        unit = UNITS[mod.kind]
+        grp, leaf = unit.param_path
+        w = params["layers"][grp][leaf][unit.index(mod)]
+        gone = np.asarray(db[name].order[:removed], np.int64)
+        rows = (gone[:, None] * mod.group_size
+                + np.arange(mod.group_size)).reshape(-1)
+        if bool(w[torch.from_numpy(rows).to(w.device)].any()):
+            return False
+    return True
+
+
+def check_small_train(torch, cfg, p_cpu, db, assignment):
+    """Phase 3, training: 5 steps of ``make_train_step`` on the small
+    GPT-2's stitched member, the dense model as teacher, the member's
+    masks and 2 microbatches, on the card and on the CPU: every metric
+    within 1e-3 relative (ROADMAP's loss tolerance), the masked rows
+    exactly 0 on both."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.database import apply_assignment
+    from repro_torch.core.pipeline import masks_from_assignment
+    from repro_torch.data import make_batch_np
+    from repro_torch.models.transformer import tree_to
+    from repro_torch.train import make_train_state, make_train_step
+
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=5,
+                       microbatches=2, distill_logit=1.0, distill_token=0.5)
+    student = apply_assignment(cfg, p_cpu, db, assignment)
+    masks = masks_from_assignment(cfg, student, db, assignment)
+    logs, zero = {}, {}
+    for dev in ("cpu", "cuda"):
+        step = make_train_step(cfg, tcfg, teacher_params=p_cpu, masks=masks,
+                               device=dev)
+        state = make_train_state(cfg, tree_to(student, dev), tcfg)
+        logs[dev] = []
+        for i in range(5):
+            state, m = step(state, make_batch_np(cfg, 8, 64, seed=2, step=i))
+            logs[dev].append({k: float(v) for k, v in m.items()})
+        zero[dev] = rows_zero(torch, state.params, db, assignment)
+    worst = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+                for w, g in zip(logs["cpu"], logs["cuda"]) for k in w)
+    print(f"small train: 5 steps (teacher, masks, 2 microbatches) card vs "
+          f"CPU: worst metric relative error {worst:.3e} (tol 1e-3); "
+          f"losses card {[round(m['loss'], 5) for m in logs['cuda']]}; "
+          f"masked rows 0: {zero}")
+    check(worst <= 1e-3, "train-step metrics differ between card and CPU")
+    check(all(zero.values()), "a masked row is not 0 after training")
 
 
 def check_small_serving(torch):
@@ -1297,6 +1372,211 @@ def serve_cli(torch, kernels):
         check(launches[name] > 0, f"{name} never launched by the serving CLI")
 
 
+# phase 8: the 2x member of phase 4's prior-scored family finetuned against
+# the dense model with the reference's gradual defaults
+# (src/repro/core/pipeline.py gradual_prune) on batches of 8 x 512; run A
+# takes 40 steps, run B stops at 30 and resumes from its step-20 checkpoint
+TRAIN_TARGET = 2.0
+TRAIN_KW = {"learning_rate": 8e-5, "warmup_steps": 5, "total_steps": 40,
+            "distill_logit": 1.0, "distill_token": 0.5}
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+TRAIN_EVERY, TRAIN_STOP = 20, 30
+TRAIN_CLI = ["--arch", "gpt2-small", "--steps", "10", "--batch", "8",
+             "--seq", "512"]
+
+
+def _same_state(torch, a, b):
+    """{part: bit-equal} for params, m, v and count of two TrainStates."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    def equal(x, y):
+        lx, ly = tree_leaves(x), tree_leaves(y)
+        return len(lx) == len(ly) and all(
+            u.dtype == w.dtype and torch.equal(u, w) for u, w in zip(lx, ly))
+    return {"params": equal(a.params, b.params),
+            "m": equal(a.opt["m"], b.opt["m"]),
+            "v": equal(a.opt["v"], b.opt["v"]),
+            "count": equal(a.opt["count"], b.opt["count"]),
+            "step": equal(a.step, b.step)}
+
+
+def run_train_path(torch, kernels, params, calib, db, fam):
+    """Phase 8: finetune the 2x member, stop and resume it bit for bit,
+    shrink it, rebuild its database, and run the training CLI."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import GPT2_SMALL
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.database import apply_assignment, build_database
+    from repro_torch.core.hessian import collect_hessians
+    from repro_torch.core.pipeline import masks_from_assignment
+    from repro_torch.core.shrink import shrink_from_stitched
+    from repro_torch.data import synthetic_stream
+    from repro_torch.models import forward
+    from repro_torch.models.pruned import forward_pruned
+    from repro_torch.train import Trainer
+
+    cfg = GPT2_SMALL
+    steps = TRAIN_KW["total_steps"]
+    a = fam[TRAIN_TARGET].assignment
+    student = apply_assignment(cfg, params, db, a)
+    masks = masks_from_assignment(cfg, student, db, a)
+    tcfg = TrainConfig(**TRAIN_KW)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+
+    def trainer(name):
+        return Trainer(cfg, tcfg, ckpt_dir=os.path.join(tmp, name),
+                       teacher_params=params, masks=masks,
+                       ckpt_every=TRAIN_EVERY, keep=2, log_every=1,
+                       device="cuda")
+
+    def stream(start=0):
+        return synthetic_stream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                                start_step=start)
+
+    try:
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ta = trainer("a")
+        sa = ta.fit(ta.init_or_restore(student), stream(), steps=steps)
+        ta.ckpt.close()
+        torch.cuda.synchronize()
+        run_a_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log = ta.metrics_log
+        step_ms = float(np.median(ta.watchdog.times[2:])) * 1e3
+        tokens_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+        print(f"train: {cfg.name} {TRAIN_TARGET}x member ("
+              f"{sum(a.values())} structures removed) against the dense "
+              f"teacher, {TRAIN_KW}, batches {TRAIN_BATCH} x {TRAIN_SEQ}")
+        print(f"train: run A {steps} steps in {run_a_s:.3f} s (checkpoints "
+              f"at {TRAIN_EVERY} and {steps} included); median step "
+              f"{step_ms:.3f} ms (steps 3-{steps}), "
+              f"{tokens_s:.1f} training tokens/s, peak device memory "
+              f"{peak:.2f} GiB")
+        print("train: loss by step " + json.dumps(
+            [round(m["loss"], 5) for m in log]))
+        print(f"train: step 1 task_loss {log[0]['task_loss']:.5f} logit_kl "
+              f"{log[0]['logit_kl']:.5f} token_l2 {log[0]['token_l2']:.5f}; "
+              f"step {steps} task_loss {log[-1]['task_loss']:.5f} logit_kl "
+              f"{log[-1]['logit_kl']:.5f} token_l2 {log[-1]['token_l2']:.5f}")
+        check(len(log) == steps
+              and all(math.isfinite(m["loss"]) for m in log),
+              "run A: a loss is missing or not finite")
+        check(log[0]["logit_kl"] > 0 and log[0]["token_l2"] > 0,
+              "run A: a distillation term is 0 at step 1")
+        check(rows_zero(torch, sa.params, db, a),
+              "run A: a masked row is not 0")
+
+        tb = trainer("b")
+        sb = tb.fit(tb.init_or_restore(student), stream(), steps=steps,
+                    stop_after=TRAIN_STOP)
+        check(int(sb.step) == TRAIN_STOP
+              and tb.ckpt.latest_step() == TRAIN_EVERY,
+              f"run B stopped at {int(sb.step)}, checkpoint "
+              f"{tb.ckpt.latest_step()}")
+        tb.ckpt.close()
+        del sb
+        tc = trainer("b")
+        sc = tc.init_or_restore(student)
+        check(int(sc.step) == TRAIN_EVERY, f"run B resumed at {int(sc.step)}")
+        check(rows_zero(torch, sc.params, db, a),
+              "a masked row is not 0 in the restored checkpoint")
+        sc = tc.fit(sc, stream(TRAIN_EVERY), steps=steps)
+        tc.ckpt.close()
+        same = _same_state(torch, sa, sc)
+        print(f"train: run B stopped at {TRAIN_STOP}, resumed from step "
+              f"{TRAIN_EVERY} by a new trainer to {steps}: bit-equal to run "
+              f"A {same}")
+        check(all(same.values()), f"resumed run differs from run A: {same}")
+        del sc
+        for d in ("a", "b"):
+            shutil.rmtree(os.path.join(tmp, d))
+
+        mgr = CheckpointManager(os.path.join(tmp, "t"), keep=1)
+        t0 = time.perf_counter()
+        mgr.save(steps, sa)
+        t1 = time.perf_counter()
+        mgr.wait()
+        t2 = time.perf_counter()
+        restored = mgr.restore(sa, steps)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        ck_dir = os.path.join(tmp, "t")
+        nbytes = sum(os.path.getsize(os.path.join(ck_dir, f))
+                     for f in os.listdir(ck_dir) if f.endswith(".npz"))
+        print(f"checkpoint: {nbytes} bytes (params, m, v fp32); save: host "
+              f"copy {t1 - t0:.3f} s + async write {t2 - t1:.3f} s; restore "
+              f"{t3 - t2:.3f} s")
+        check(all(_same_state(torch, sa, restored).values()),
+              "a checkpoint does not restore to its state")
+        mgr.close()
+        del restored
+
+        tokens = calib[0]["tokens"].cuda()
+        with torch.no_grad():
+            want = forward(cfg, sa.params, tokens)["logits"]
+            got = forward_pruned(shrink_from_stitched(cfg, sa.params, db, a),
+                                 tokens)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        finite = bool(torch.isfinite(got).all())
+        print(f"train: finetuned {TRAIN_TARGET}x member shrunk vs masked "
+              f"logits max_abs_err={err:.4e} (scale {scale:.4e}, tol "
+              f"{STITCHED_TOL:g}*scale), finite {finite}")
+        check(finite and err <= STITCHED_TOL * scale,
+              "the finetuned member's shrunk logits disagree")
+        del want, got
+
+        t0 = time.perf_counter()
+        db2 = build_database(cfg, sa.params,
+                             collect_hessians(cfg, sa.params, calib,
+                                              device="cuda"), device="cuda")
+        torch.cuda.synchronize()
+        rebuild_s = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in kernels.KERNELS}
+        first, zero_err = [], []
+        for name, removed in a.items():
+            new, old = db2[name], db[name]
+            first.append(set(new.order[:removed].tolist())
+                         == set(old.order[:removed].tolist()))
+            i = int(np.searchsorted(new.levels, removed))
+            zero_err.append(bool(new.levels[i] == removed)
+                            and float(new.errors[i]) == 0.0)
+        print(f"train: Hessians and database rebuilt on the finetuned member "
+              f"in {rebuild_s:.3f} s; the removed structures come first in "
+              f"{sum(first)}/{len(first)} modules, at error 0 in "
+              f"{sum(zero_err)}/{len(zero_err)}; launches {launches}")
+        check(all(first), "a rebuilt order does not start with the removed "
+              "structures")
+        check(all(zero_err), "the rebuilt database's error at the member's "
+              "level is not 0")
+        for name in ONESHOT_KERNELS:
+            check(launches[name] > 0, f"{name} never launched on phase 8")
+        del db2
+
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI,
+             "--ckpt-dir", os.path.join(tmp, "cli")],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=SRC),
+            capture_output=True, text=True, timeout=300)
+        print(f"train CLI: python -m repro_torch.launch.train "
+              f"{' '.join(TRAIN_CLI)}: exit {out.returncode} in "
+              f"{time.perf_counter() - t0:.2f} s")
+        for line in (out.stdout + out.stderr).strip().splitlines()[-4:]:
+            print(f"  {line}")
+        check(out.returncode == 0, "the training CLI failed")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # phase 6: Mamba-2 2.7B at full width with 8 of its 64 layers. Each layer's
 # database keeps 81 fp16 snapshots of its 5120 x 2560 out_proj (2.12 GB),
 # all resident on the card in the SnapshotCache: 64 layers (136 GB) would
@@ -1727,6 +2007,9 @@ def _leaves(tree):
 
 
 def main() -> int:
+    # the train step's deterministic algorithms need a fixed cuBLAS
+    # workspace, set before the first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError as e:
@@ -1779,6 +2062,12 @@ def main() -> int:
         if name in SERVING_KERNELS})
     serve_cli(torch, kernels)
     print(f"phase 5: serving done ({time.perf_counter() - t0:.2f} s)")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    train_launches = run_train_path(torch, kernels, params, calib, db, fam)
+    print(f"phase 8: finetune, resume and rebuild done "
+          f"({time.perf_counter() - t0:.2f} s)")
     del params, calib, db, fam
     torch.cuda.empty_cache()
 
@@ -1795,14 +2084,16 @@ def main() -> int:
     for name, rec in records.items():
         rec["launches"] = launches[name]
         rec["moe_launches"] = moe_launches[name]
+        rec["train_launches"] = train_launches[name]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     # flash attention's and the SSD pass's device-only times ride beside
     # their eager ones, hessian_accum's and the SSD pass's other shapes
     # beside their main shape, and each kernel's launches on the MoE path
-    # (phase 7) beside those on its own path (phases 4-6)
+    # (phase 7) and on the trainer's path (phase 8) beside those on its own
+    # path (phases 4-6)
     extra = ["device_ms", "library_device_ms", "other_shapes",
-             "moe_launches"]
+             "moe_launches", "train_launches"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in records.values()]}))
     print(card_line())

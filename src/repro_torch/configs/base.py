@@ -15,7 +15,8 @@ mixture-of-experts stacks and Mamba-2 (SSD) stacks; ``models.transformer``
 rejects the families it does not run yet.
 
 ``ShapeConfig`` and ``LM_SHAPES`` are the reference's input-shape cells,
-which ``configs.shapes_for`` assigns to an architecture.
+which ``configs.shapes_for`` assigns to an architecture. ``TrainConfig``
+is the reference's trainer configuration, field for field.
 """
 from __future__ import annotations
 
@@ -121,3 +122,22 @@ LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
 
 LM_SHAPES: Tuple[ShapeConfig, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K,
                                       LONG_500K)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.03
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    microbatches: int = 1
+    # distillation (Eq. 5)
+    distill_task: float = 1.0     # lambda_1
+    distill_logit: float = 0.0    # lambda_2
+    distill_token: float = 0.0    # lambda_3
+    # distributed-optimization tricks
+    grad_compression: str = "none"  # none | int8_ef
+    seed: int = 0

@@ -83,6 +83,13 @@ class PruneUnit:
         new[self.index(mod)] = w.to(device=new.device, dtype=new.dtype)
         layers[grp][leaf] = new
 
+    def mask_rows(self, layers, mod: PrunableModule, row_mask) -> None:
+        """Scale the out-side matrix rows in a params-shaped mask tree, in
+        place (``row_mask``: (d_in, 1)). The tree is the caller's own mask
+        tree, never a params tree (``core.pipeline.masks_from_assignment``)."""
+        grp, leaf = self.param_path
+        layers[grp][leaf][self.index(mod)] *= row_mask
+
     def get_capture(self, layer_caps, mod: PrunableModule):
         """(X, valid) for one layer's captures; X: (N, d_in)."""
         grp, _ = self.param_path

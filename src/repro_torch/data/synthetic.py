@@ -6,7 +6,7 @@ the model's entry points move them to their device.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, Iterator, List
 
 import numpy as np
 import torch
@@ -60,6 +60,16 @@ def make_batch_np(cfg, batch: int, seq: int, *, seed: int = 0,
         b["tokens"] = torch.from_numpy(masked)
         b["mask"] = torch.from_numpy(mask)
     return b
+
+
+def synthetic_stream(cfg, batch: int, seq: int, *, seed: int = 0,
+                     start_step: int = 0) -> Iterator[Dict[str, torch.Tensor]]:
+    """Endless training batches ``make_batch_np(..., step=start_step + i)``:
+    a run resumed at step ``k`` reads the same batches from ``k`` on."""
+    step = start_step
+    while True:
+        yield make_batch_np(cfg, batch, seq, seed=seed, step=step)
+        step += 1
 
 
 def calibration_batches(cfg, n_samples: int, seq: int, *, batch: int = 8,

@@ -99,3 +99,16 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry reported a launch error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def check_no_grad(what: str, *tensors) -> None:
+    """Raise before a launch that autograd would need to see through. A
+    kernel has no backward, so its output would carry no ``grad_fn`` and
+    a backward pass would silently drop the gradients of its inputs."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: an input requires grad, but the CUDA kernel has no "
+            "backward yet; run it under torch.no_grad(), or train through "
+            "a path without this kernel")

@@ -122,10 +122,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: Optional[int] = None) -> torch.Tensor:
     """q (B, Sq, HQ, D), k/v (B, Sk, HKV, D), fp32 or bf16, D in
     ``HEAD_DIMS`` -> (B, Sq, HQ, D) in q's type. Counts its kernel
-    launches in ``flash_attention.launches``."""
+    launches in ``flash_attention.launches``. The kernel has no backward:
+    a launch with grad mode on and an input that requires grad raises (the
+    plain version on the CPU stays differentiable)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)
+    build.check_no_grad("flash_attention", q, k, v)
     _check(q, k, v, window)
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]

@@ -249,9 +249,12 @@ def launch_plan(xdt: torch.Tensor, B: torch.Tensor) -> SsdPlan:
 def ssd_intra_chunk(xdt, dacs, B, C) -> Tuple[torch.Tensor, torch.Tensor]:
     """The intra-chunk pass (see ``ssd_intra_chunk_plain`` for shapes).
     Counts its kernel launches in ``ssd_intra_chunk.launches`` (one per
-    call, though a chunk above 128 rows also runs a reduction)."""
+    call, though a chunk above 128 rows also runs a reduction). The kernel
+    has no backward: a launch with grad mode on and an input that requires
+    grad raises (the plain version on the CPU stays differentiable)."""
     if xdt.device.type == "cpu":
         return ssd_intra_chunk_plain(xdt, dacs, B, C)
+    build.check_no_grad("ssd_intra_chunk", xdt, dacs, B, C)
     _check(xdt, dacs, B, C)
     b, nc, q, h, p = xdt.shape
     n = B.shape[3]
@@ -305,7 +308,11 @@ def ssd_chunked(x, dt, A, B, C, chunk: int,
     """Chunked SSD. x (b, s, h, p), dt (b, s, h) (softplus'ed), A (h,),
     B/C (b, s, n) -> (y (b, s, h, p) in x's type, final_state
     (b, h, p, n) fp32). The intra-chunk pass is ``ssd_intra_chunk``: the
-    kernel for CUDA tensors, its plain version on the CPU."""
+    kernel for CUDA tensors, its plain version on the CPU; on CUDA it
+    raises where an input requires grad under grad mode (the kernel has no
+    backward)."""
+    if x.device.type != "cpu":
+        build.check_no_grad("ssd_chunked", x, dt, A, B, C, initial_state)
     b, s, h, p = x.shape
     xdt, dacs, Bb, Cb = intra_chunk_inputs(x, dt, A, B, C, chunk)
     nc, n = xdt.shape[1], Bb.shape[-1]

@@ -6,7 +6,10 @@ layer leaves, ``y = x @ W``; an MoE layer's ``moe.router`` (L, d, E) and
 its experts' ``moe.wg``/``moe.wu`` (L, E, d, f) and ``moe.wd``
 (L, E, f, d)), so the bridge is a tensor copy per leaf and weights are
 never re-drawn. Convert a JAX tree first with
-``jax.tree.map(np.asarray, params)``.
+``jax.tree.map(np.asarray, params)``. ``train_state_from_numpy`` moves a
+whole reference ``TrainState`` (params, AdamW's m, v and count, and the
+step) over the same way, so a JAX run and a port run continue from one
+state.
 """
 from __future__ import annotations
 
@@ -35,3 +38,26 @@ def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     return tree.detach().cpu().numpy()
+
+
+def train_state_from_numpy(state, device: DeviceLike = None):
+    """The reference's ``TrainState`` given as numpy (``jax.tree.map(
+    np.asarray, state)``) as the port's ``train.TrainState``. The
+    int8 error-feedback residual is not ported and must be ``None``."""
+    from ..train.train_step import TrainState
+    if state.ef_err is not None:
+        raise ValueError("train_state_from_numpy: the int8_ef residual "
+                         "(ef_err) has no counterpart in the port")
+    dev = resolve_device(device)
+
+    def scalar(x):
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32,
+                            device=dev)
+
+    opt = state.opt
+    return TrainState(
+        params=params_from_numpy(state.params, dev),
+        opt={"m": params_from_numpy(opt["m"], dev),
+             "v": params_from_numpy(opt["v"], dev),
+             "count": scalar(opt["count"])},
+        step=scalar(state.step))

@@ -20,9 +20,10 @@ def cross_entropy(logits, labels, mask=None):
     return -(ll * mask).sum() / mask.sum().clamp_min(1.0)
 
 
-def loss_fn(cfg, params, batch):
+def loss_fn(cfg, params, batch, *, collect_hiddens=False):
     """Next-token (decoder) or masked (encoder) LM loss."""
-    out = forward(cfg, params, batch["tokens"])
+    out = forward(cfg, params, batch["tokens"],
+                  collect_hiddens=collect_hiddens)
     logits = out["logits"]
     dev = logits.device
     mask = batch.get("mask")

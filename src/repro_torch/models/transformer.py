@@ -78,9 +78,14 @@ def model_init(cfg, generator: Optional[torch.Generator] = None,
 
 
 def tree_to(tree, device, dtype=None):
-    """Move (and optionally cast) every tensor of a nested dict."""
+    """Move (and optionally cast) every tensor of a nested dict (or of a
+    named tuple of them, such as a ``TrainState``; ``None`` stays)."""
     if isinstance(tree, dict):
         return {k: tree_to(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_to(v, device, dtype) for v in tree))
+    if tree is None:
+        return None
     return tree.to(device=device, dtype=dtype)
 
 
@@ -134,7 +139,7 @@ def _stack(trees):
 
 
 def forward(cfg, params, tokens: torch.Tensor, *, mode: str = "train",
-            capture: bool = False):
+            capture: bool = False, collect_hiddens: bool = False):
     """Full-sequence forward.
 
     mode: "train" (logits over all positions) or "prefill" (also returns
@@ -147,7 +152,9 @@ def forward(cfg, params, tokens: torch.Tensor, *, mode: str = "train",
     axis: ``captures[group][key]`` for attention stacks (an MoE layer's
     ``captures["ffn"]["wd_in"]`` is (L, E, C, f), with
     ``captures["ffn"]["wd_valid"]`` (L, E, C)), ``captures["ssm_out_in"]``
-    for SSM stacks).
+    for SSM stacks). With ``collect_hiddens``, ``hiddens`` is each layer's
+    output stacked to (L, B, S, d), as the reference's ``_scan_stack``
+    collects them (token distillation reads them).
     """
     check_supported(cfg)
     build_cache = mode == "prefill"
@@ -155,7 +162,7 @@ def forward(cfg, params, tokens: torch.Tensor, *, mode: str = "train",
     tokens = tokens.to(dev)
     x = embed_tokens(cfg, params["embed"], tokens)
     block = _ssm_block if block_kind(cfg) == "ssm" else _self_block
-    caps, caches, auxes = [], [], []
+    caps, caches, auxes, hiddens = [], [], [], []
     for i in range(cfg.num_layers):
         x, aux, c_layer, c = block(cfg, _layer(params["layers"], i), x,
                                    build_cache=build_cache, capture=capture)
@@ -163,10 +170,14 @@ def forward(cfg, params, tokens: torch.Tensor, *, mode: str = "train",
         caches.append(c_layer)
         if aux is not None:
             auxes.append(aux)
+        if collect_hiddens:
+            hiddens.append(x)
     x = apply_norm(cfg, params["final_norm"], x)
     out = {"logits": unembed(cfg, params["embed"], params.get("head", {}), x),
            "aux": (torch.stack(auxes).mean() if auxes
                    else torch.zeros((), device=dev))}
+    if collect_hiddens:
+        out["hiddens"] = torch.stack(hiddens)
     if capture:
         out["captures"] = _stack(caps)
     if build_cache and block_kind(cfg) == "ssm":

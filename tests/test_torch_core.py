@@ -59,6 +59,17 @@ from repro_torch.runtime.costmodel import HardwareSpec, InferenceEnv
 JAX_EXECUTION = ("remat", "scan_layers", "flash_block_q", "flash_block_k")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run this module's torch CPU ops on one thread: its tensors are
+    small, and with the test workers sharing the cores each op's thread
+    pool otherwise waits on the others (minutes instead of seconds)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def port_cfg(ref_cfg):
     """The port's config of a reference config, field for field."""
     return ModelConfig(**{k: v for k, v in dataclasses.asdict(ref_cfg).items()

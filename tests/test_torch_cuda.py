@@ -16,20 +16,37 @@ rounds the scores to bf16, as the reference's model twin does, the kernel
 keeps them fp32: a relative 2^-9 per score, summed over up to a chunk of
 terms), and the
 chunked scan 2e-3 against the token-by-token recurrence (the reference's
-SSD tolerance).
+SSD tolerance). The train step on the card against the CPU: each metric
+1e-3 relative (ROADMAP's loss tolerance), masked rows exactly 0; a killed
+and resumed run on the card bit for bit against an uninterrupted one.
 """
-import numpy as np
-import pytest
-import torch
+import os
 
-from repro_torch.configs import MAMBA2_2P7B
+# the train step runs under deterministic algorithms, which on CUDA need
+# this set before the first cuBLAS call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.configs import GPT2_SMALL, MAMBA2_2P7B, smoke_config
+from repro_torch.configs.base import TrainConfig
+from repro_torch.core.database import apply_assignment, build_database
+from repro_torch.core.hessian import collect_hessians
+from repro_torch.core.pipeline import masks_from_assignment
+from repro_torch.data import (calibration_batches, make_batch_np,
+                              synthetic_stream)
+from repro_torch.launch import train as train_cli
 from repro_torch.kernels import (flash_attention, flash_attention_plain,
                                  hessian_accum, hessian_accum_plain,
                                  obs_downdate, obs_downdate_plain,
                                  ssd_intra_chunk, ssd_intra_chunk_plain)
-from repro_torch.kernels.ssd_scan import ssd_chunked
+from repro_torch.kernels.ssd_scan import intra_chunk_inputs, ssd_chunked
 from repro_torch.models import forward, generate, model_init
 from repro_torch.models.transformer import tree_to
+from repro_torch.optim.adamw import tree_leaves
+from repro_torch.train import (Trainer, make_train_state, make_train_step)
 
 
 @pytest.fixture
@@ -483,3 +500,156 @@ def test_mamba2_forward_and_generate_on_the_card_match_the_cpu(cuda_device):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     assert torch.equal(generate(cfg, p_gpu, tokens.to(cuda_device), 8).cpu(),
                        generate(cfg, p_cpu, tokens, 8))
+
+
+def _grad_call(name, device):
+    """One small call of a kernel wrapper: (fn, inputs that require
+    grad on ``device``)."""
+    g = torch.Generator().manual_seed(0)
+    if name == "flash_attention":
+        args = [torch.randn(shape, generator=g) for shape in
+                [(1, 64, 4, 64), (1, 64, 2, 64), (1, 64, 2, 64)]]
+        fn = lambda *a: flash_attention(*a, causal=True)  # noqa: E731
+    else:
+        b, s, h, p, n, chunk = 1, 64, 2, 32, 16, 32
+        x = torch.randn((b, s, h, p), generator=g) * 0.5
+        dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g))
+        A = -torch.exp(torch.randn((h,), generator=g) * 0.3)
+        B, C = (torch.randn((b, s, n), generator=g) * 0.5 for _ in range(2))
+        if name == "ssd_chunked":
+            args = [x, dt, A, B, C]
+            fn = lambda *a: ssd_chunked(*a, chunk)[0]  # noqa: E731
+        else:
+            args = list(intra_chunk_inputs(x, dt, A, B, C, chunk))
+            fn = lambda *a: ssd_intra_chunk(*a)[0]  # noqa: E731
+    return fn, [a.to(device).requires_grad_(True) for a in args]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash_attention", "ssd_intra_chunk",
+                                  "ssd_chunked"])
+def test_kernel_wrappers_refuse_grad_on_the_card(cuda_device, name):
+    """A launch under grad mode with an input that requires grad raises
+    (the kernel has no backward); under no_grad it launches."""
+    fn, args = _grad_call(name, cuda_device)
+    kernel = flash_attention if name == "flash_attention" \
+        else ssd_intra_chunk
+    before = kernel.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(*args)
+    assert kernel.launches == before
+    with torch.no_grad():
+        out = fn(*args)
+    assert kernel.launches == before + 1 and out.grad_fn is None
+
+
+TRAIN_CFG = GPT2_SMALL.replace(
+    name="gpt2-tiny", num_layers=2, d_model=96, d_ff=384, num_heads=6,
+    num_kv_heads=6, head_dim=16, vocab_size=384, dtype="float32")
+TRAIN_TCFG = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=8,
+                         microbatches=2, distill_logit=1.0,
+                         distill_token=0.5)
+
+
+def _train_member():
+    """A tiny GPT-2 teacher, a member of its database with 3 of 6 heads
+    and 250 of 384 FFN rows removed, and the member's masks (CPU)."""
+    cfg = TRAIN_CFG
+    teacher = model_init(cfg, torch.Generator().manual_seed(1), device="cpu")
+    calib = calibration_batches(cfg, 16, 64, batch=8)
+    db = build_database(cfg, teacher, collect_hessians(cfg, teacher, calib,
+                                                       device="cpu"),
+                        device="cpu")
+    a = {name: (3 if "attn" in name else 250) for name in db}
+    student = apply_assignment(cfg, teacher, db, a)
+    return teacher, student, masks_from_assignment(cfg, student, db, a), \
+        db, a
+
+
+def _rows_zero(params, db, a):
+    for name, removed in a.items():
+        mod = db[name].mod
+        leaf = params["layers"]["attn"]["wo"] if mod.kind == "attn" \
+            else params["layers"]["ffn"]["wd"]
+        gs = mod.group_size
+        for g in db[name].order[:removed]:
+            if bool(leaf[mod.layer, g * gs:(g + 1) * gs].any()):
+                return False
+    return True
+
+
+@pytest.mark.cuda
+def test_train_steps_on_the_card_match_the_cpu(cuda_device):
+    teacher, student, masks, db, a = _train_member()
+    states, logs = {}, {}
+    for dev in ("cpu", cuda_device):
+        step = make_train_step(TRAIN_CFG, TRAIN_TCFG, teacher_params=teacher,
+                               masks=masks, device=dev)
+        state = make_train_state(TRAIN_CFG, tree_to(student, dev),
+                                 TRAIN_TCFG)
+        logs[str(dev)] = []
+        for i in range(5):
+            state, m = step(state, make_batch_np(TRAIN_CFG, 8, 64, seed=2,
+                                                 step=i))
+            logs[str(dev)].append({k: float(v) for k, v in m.items()})
+        states[str(dev)] = tree_to(state.params, "cpu")
+        assert _rows_zero(states[str(dev)], db, a)
+    for want, got in zip(logs["cpu"], logs[str(cuda_device)]):
+        for k in want:
+            assert got[k] == pytest.approx(want[k], rel=1e-3), k
+
+
+@pytest.mark.cuda
+def test_moe_train_steps_on_the_card_match_the_cpu(cuda_device):
+    """The smoke Phi-3.5-MoE (fp32): the expert dispatch's scatter-add
+    under deterministic algorithms, card against CPU."""
+    cfg = smoke_config("phi3.5-moe-42b-a6.6b").replace(dtype="float32")
+    student = model_init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    teacher = model_init(cfg, torch.Generator().manual_seed(1), device="cpu")
+    logs = {}
+    for dev in ("cpu", cuda_device):
+        step = make_train_step(cfg, TRAIN_TCFG, teacher_params=teacher,
+                               device=dev)
+        state = make_train_state(cfg, tree_to(student, dev), TRAIN_TCFG)
+        logs[str(dev)] = []
+        for i in range(3):
+            state, m = step(state, make_batch_np(cfg, 4, 64, seed=3, step=i))
+            logs[str(dev)].append({k: float(v) for k, v in m.items()})
+    for want, got in zip(logs["cpu"], logs[str(cuda_device)]):
+        for k in want:
+            assert got[k] == pytest.approx(want[k], rel=1e-3), k
+
+
+@pytest.mark.cuda
+def test_kill_and_resume_on_the_card_is_bit_identical(cuda_device, tmp_path):
+    teacher, student, masks, db, a = _train_member()
+    kw = dict(teacher_params=teacher, masks=masks, ckpt_every=4,
+              device=cuda_device)
+    ta = Trainer(TRAIN_CFG, TRAIN_TCFG, ckpt_dir=str(tmp_path / "a"), **kw)
+    sa = ta.fit(ta.init_or_restore(student),
+                synthetic_stream(TRAIN_CFG, 8, 64, seed=0), steps=8)
+    ta.ckpt.close()
+    tb = Trainer(TRAIN_CFG, TRAIN_TCFG, ckpt_dir=str(tmp_path / "b"), **kw)
+    tb.fit(tb.init_or_restore(student),
+           synthetic_stream(TRAIN_CFG, 8, 64, seed=0), steps=8, stop_after=6)
+    tb.ckpt.close()
+    tc = Trainer(TRAIN_CFG, TRAIN_TCFG, ckpt_dir=str(tmp_path / "b"), **kw)
+    sc = tc.init_or_restore(student)
+    assert int(sc.step) == 4
+    sc = tc.fit(sc, synthetic_stream(TRAIN_CFG, 8, 64, seed=0, start_step=4),
+                steps=8)
+    tc.ckpt.close()
+    for x, y in zip(tree_leaves({"p": sa.params, "o": sa.opt}),
+                    tree_leaves({"p": sc.params, "o": sc.opt})):
+        assert torch.equal(x, y)
+    assert torch.equal(sa.step, sc.step)
+    assert _rows_zero(tree_to(sa.params, "cpu"), db, a)
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
+@pytest.mark.cuda
+def test_train_cli_on_the_card(cuda_device, tmp_path, capsys):
+    assert train_cli.main(["--arch", "gpt2-small", "--smoke", "--steps", "3",
+                           "--batch", "4", "--seq", "64", "--ckpt-dir",
+                           str(tmp_path)]) == 0
+    assert "on cuda" in capsys.readouterr().out

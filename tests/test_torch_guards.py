@@ -2,6 +2,7 @@
 and its entry points run on the GPU unless the caller asks for the CPU."""
 import ast
 import pathlib
+import tempfile
 
 import pytest
 import torch
@@ -12,10 +13,13 @@ from repro_torch.core.hessian import collect_hessians
 from repro_torch.core.latency import build_table
 from repro_torch.core.oneshot import calib_loss_fn, oneshot_prune
 from repro_torch.core.shrink import shrink
+from repro_torch.configs.base import TrainConfig
 from repro_torch.launch import serve as serve_cli
+from repro_torch.launch import train as train_cli
 from repro_torch.models import init_cache, model_init
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.runtime.costmodel import InferenceEnv
+from repro_torch.train import Trainer, make_train_step
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -45,7 +49,9 @@ def test_port_files_are_found():
             "mamba2_2p7b.py", "chip_smoke.py", "bench_torch_ssd.py",
             "moe.py", "phi35_moe_42b.py", "dbrx_132b.py", "bert.py",
             "qwen2_72b.py", "qwen15_110b.py", "internlm2_20b.py",
-            "h2o_danube_1p8b.py", "profile_torch_oneshot.py"} <= names
+            "h2o_danube_1p8b.py", "profile_torch_oneshot.py", "adamw.py",
+            "schedule.py", "losses.py", "train_step.py", "trainer.py",
+            "manager.py", "pipeline.py", "train.py"} <= names
 
 
 ENV = InferenceEnv(batch=2, seq=8, hw=None)
@@ -76,6 +82,9 @@ ENTRY_POINTS = {
     "shrink": lambda: shrink(TINY, {"layers": {}}, {}, {}),
     "init_cache": lambda: init_cache(TINY, 1, 8),
     "launch.serve": lambda: serve_cli.main(["--arch", "gpt2-small"]),
+    "make_train_step": lambda: make_train_step(TINY, TrainConfig()),
+    "Trainer": lambda: Trainer(TINY, TrainConfig(), ckpt_dir="unused"),
+    "launch.train": lambda: train_cli.main(["--arch", "gpt2-small"]),
 }
 
 
@@ -85,6 +94,19 @@ def test_entry_points_default_to_the_gpu(name):
         pytest.skip("a GPU is present: the default device is usable")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ENTRY_POINTS[name]()
+
+
+def test_train_entry_points_leave_no_checkpoint_behind_without_a_gpu(
+        tmp_path, monkeypatch):
+    """The trainer and the CLI refuse before they make a directory."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(TINY, TrainConfig(), ckpt_dir=str(tmp_path / "ck"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_cli.main(["--arch", "gpt2-small", "--steps", "1"])
+    assert not any(tmp_path.iterdir())
 
 
 def test_cpu_runs_only_when_asked():

@@ -24,10 +24,22 @@ from repro_torch.kernels import (flash_attention, flash_attention_plain,
                                  reset_launch_counts)
 from repro_torch.kernels.hessian_accum import last_wave_fill, split_plan
 from repro_torch.kernels.ssd_scan import (HEAD_DIMS, MAX_CHUNK, SMEM_LIMIT,
-                                          intra_chunk_inputs,
+                                          intra_chunk_inputs, ssd_chunked,
+                                          ssd_intra_chunk,
                                           ssd_intra_chunk_plain, ssd_layout,
                                           ssd_plan, waves)
 from repro_torch.models.attention import flash_attention_chunked
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run this module's torch CPU ops on one thread: its tensors are
+    small, and with the test workers sharing the cores each op's thread
+    pool otherwise waits on the others (minutes instead of seconds)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _x(shape, seed, dtype):
@@ -320,6 +332,56 @@ def test_wrappers_use_plain_versions_on_cpu_without_launching():
                        flash_attention_plain(q, k, v, **kw))
     assert hessian_accum.launches == 0 and obs_downdate.launches == 0
     assert flash_attention.launches == 0
+
+
+GRAD_WRAPPERS = ["flash_attention", "ssd_intra_chunk", "ssd_chunked"]
+
+
+def grad_call(name, device):
+    """One small call of a kernel wrapper: (fn, inputs on ``device`` that
+    require grad)."""
+    g = torch.Generator().manual_seed(0)
+    if name == "flash_attention":
+        args = [torch.randn(shape, generator=g) for shape in
+                [(1, 24, 4, 16), (1, 24, 2, 16), (1, 24, 2, 16)]]
+        fn = lambda *a: flash_attention(*a, causal=True)  # noqa: E731
+    else:
+        b, s, h, p, n, chunk = 1, 64, 2, 16, 8, 32
+        x = torch.randn((b, s, h, p), generator=g) * 0.5
+        dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g))
+        A = -torch.exp(torch.randn((h,), generator=g) * 0.3)
+        B, C = (torch.randn((b, s, n), generator=g) * 0.5 for _ in range(2))
+        if name == "ssd_chunked":
+            args = [x, dt, A, B, C]
+            fn = lambda *a: ssd_chunked(*a, chunk)[0]  # noqa: E731
+        else:
+            args = list(intra_chunk_inputs(x, dt, A, B, C, chunk))
+            fn = lambda *a: ssd_intra_chunk(*a)[0]  # noqa: E731
+    return fn, [a.to(device).requires_grad_(True) for a in args]
+
+
+@pytest.mark.parametrize("name", GRAD_WRAPPERS)
+def test_kernel_wrappers_refuse_inputs_that_require_grad(name):
+    """Off the CPU a wrapper launches its kernel, which has no backward: a
+    call with grad mode on and an input that requires grad raises before
+    the launch instead of returning a result without a ``grad_fn``. The
+    meta device takes the kernel's branch on a machine without a card."""
+    fn, args = grad_call(name, "meta")
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(*args)
+
+
+@pytest.mark.parametrize("name", GRAD_WRAPPERS)
+def test_plain_paths_stay_differentiable_on_the_cpu(name):
+    reset_launch_counts()
+    fn, args = grad_call(name, "cpu")
+    out = fn(*args)
+    assert out.grad_fn is not None
+    out.square().sum().backward()
+    for a in args:
+        assert a.grad is not None and bool(torch.isfinite(a.grad).all())
+        assert bool(a.grad.any())
+    assert flash_attention.launches == 0 and ssd_intra_chunk.launches == 0
 
 
 # ----------------------------------------------------------------------

@@ -57,6 +57,18 @@ from repro_torch.serve import (DENSE_TARGET, DenseServeModel, FamilyServer,
                                PrunedServeModel, Request, ServeEngine,
                                synthetic_requests)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run this module's torch CPU ops on one thread: its tensors are
+    small, and with the test workers sharing the cores each op's thread
+    pool otherwise waits on the others (minutes instead of seconds)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 MAX_LEN = 48
 # tests/conftest.py's gpt2-tiny, and a llama-style variant (RoPE,
 # RMSNorm, SwiGLU, 2 KV heads for 4 query heads, untied head)

@@ -69,6 +69,18 @@ from repro_torch.models.transformer import check_supported
 from repro_torch.runtime.costmodel import HardwareSpec, InferenceEnv
 from repro_torch.serve import DenseServeModel
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run this module's torch CPU ops on one thread: its tensors are
+    small, and with the test workers sharing the cores each op's thread
+    pool otherwise waits on the others (minutes instead of seconds)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REF_SSM = smoke_config("mamba2-2.7b").replace(dtype="float32")
 JAX_EXECUTION = ("remat", "scan_layers", "flash_block_q", "flash_block_k")
 HW = HardwareSpec(**dataclasses.asdict(TPU_V5E))
