@@ -71,6 +71,25 @@ Phases (any failure exits non-zero and prints no result):
    repro_torch.launch.train --arch gpt2-small --steps 10 --batch 8 --seq
    512``) must exit 0. Prints the median step time, tokens/s, peak
    memory, the checkpoint's bytes and its save and restore seconds;
+9. (run right after phase 8, on phase 4's dense model and calibration)
+   the gradual family engine: ``gradual_prune`` for targets 1.5x and 2x,
+   each target calibrated again, its database built, searched (16
+   candidates, population 8, scored by loss), finetuned 16 steps of 8 x
+   512 with the reference's gradual defaults and checkpoints every 8
+   steps, and exported on a background thread (``overlap=True``); priced
+   by the cost model on the H100 data sheet's rates (a measured table is
+   not the same in two builds, so a resume would search against another
+   one). Run A goes through, with the launch counts zeroed just before
+   and read just after (hessian_accum and obs_downdate must each have
+   launched; JSON ``family_launches``). Run B is killed after target 0's
+   search, then at step 12 of target 1's finetune (its step-8
+   checkpoint must be on disk), then resumed to the end, executing only
+   target 1's finetune: assignments, speedups, losses and final params
+   equal to run A's bit for bit. Every member meets its target, the
+   speedups rise, masked rows are exactly 0 and each shrunk member's
+   logits are within 5e-2 of scale of its masked model's. Prints each
+   target's stage seconds, both runs' seconds, the bytes of each artifact
+   kind and the peak device memory;
 6. the Mamba-2 slice: ``oneshot_prune`` on Mamba-2 2.7B at full width
    (d_model 2560, 80 SSD heads x 64, state 128, chunk 128, vocab 50280)
    with 8 of its 64 layers, seeded weights, the same calibration, table
@@ -1577,6 +1596,196 @@ def run_train_path(torch, kernels, params, calib, db, fam):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# phase 9: the gradual family engine (core/pipeline.py gradual_prune) on
+# phase 4's dense GPT-2 small and calibration batches: targets 1.5x and 2x,
+# each pruned, finetuned 16 steps of 8 x 512 with the reference's gradual
+# defaults (lr 8e-5, 5 warm-up steps, logit 1.0 and token 0.5
+# distillation), checkpointed every 8 steps and exported on a background
+# thread. Run A goes through; run B is killed after target 0's search and
+# at step 12 of target 1's finetune, then resumed to the end, and must
+# equal run A bit for bit
+FAMILY_TARGETS = [1.5, 2.0]
+FAMILY_KW = {"finetune_steps": 16, "ckpt_every": 8, "search_steps": 16,
+             "search_pop": 8}
+FAMILY_TRAIN = {"learning_rate": 8e-5, "warmup_steps": 5, "total_steps": 16,
+                "distill_logit": 1.0, "distill_token": 0.5}
+FAMILY_BATCH, FAMILY_SEQ = 8, 512
+FAMILY_STOP = 12
+# the family prices with the cost model, whose table is the same in every
+# build, so a resumed run searches its remaining targets against the
+# killed run's table (a measured table differs from build to build). The
+# rates are the H100 SXM data sheet's above and 80 GB of memory; the
+# 5e-6 s a module, a floor for an eager launch, is an assumption, not a
+# measurement. The speedups it gives are the model's, not measured ones
+FAMILY_ENV = {"batch": 16, "seq": 128, "mode": "prefill"}
+FAMILY_HW = {"name": "h100-sxm-datasheet", "peak_flops": PEAK_BF16,
+             "hbm_bw": HBM_BYTES_PER_S, "ici_bw": 0.0, "hbm_bytes": 80e9,
+             "op_overhead": 5e-6}
+ARTIFACT_KINDS = ("hessians.npz", "db.npz", "params.npz", "ckpt",
+                  "family.json")
+
+
+def _artifact_bytes(run_dir: str) -> dict:
+    """Bytes on disk under ``run_dir`` by artifact kind (trainer
+    checkpoints under ``ckpt``)."""
+    out = {k: 0 for k in ARTIFACT_KINDS}
+    for d, _, files in os.walk(run_dir):
+        for f in files:
+            kind = "ckpt" if os.path.basename(d) == "ckpt" else f
+            if kind in out:
+                out[kind] += os.path.getsize(os.path.join(d, f))
+    return out
+
+
+def run_family_path(torch, kernels, params, calib):
+    """Phase 9: gradual_prune on full-width GPT-2 small, run through and
+    killed and resumed bit for bit."""
+    import shutil
+    import tempfile
+    from types import SimpleNamespace
+
+    import numpy as np
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import load_json
+    from repro_torch.configs import GPT2_SMALL
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.pipeline import (FamilyPreempted, family_run_dir,
+                                           gradual_prune)
+    from repro_torch.core.structures import registry
+    from repro_torch.data import synthetic_stream
+    from repro_torch.models import forward
+    from repro_torch.models.pruned import forward_pruned
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.costmodel import HardwareSpec, InferenceEnv
+
+    cfg = GPT2_SMALL
+    env = InferenceEnv(hw=HardwareSpec(**FAMILY_HW), **FAMILY_ENV)
+    tcfg = TrainConfig(**FAMILY_TRAIN)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_family_")
+    mods = {m.name: m for m in registry(cfg)}
+
+    def data(step):
+        return synthetic_stream(cfg, FAMILY_BATCH, FAMILY_SEQ, seed=0,
+                                start_step=step)
+
+    def run(name, **kw):
+        return gradual_prune(cfg, params, env, FAMILY_TARGETS, data, calib,
+                             tcfg=tcfg, ckpt_dir=os.path.join(tmp, name),
+                             seed=0, device="cuda", **FAMILY_KW, **kw)
+
+    def run_dir(name):
+        return family_run_dir(cfg, FAMILY_TARGETS, 0, os.path.join(tmp, name))
+
+    def preempted(name, stop):
+        t0 = time.perf_counter()
+        try:
+            run(name, stop_after=stop)
+        except FamilyPreempted as e:
+            print(f"family: run {name} stopped at {stop} in "
+                  f"{time.perf_counter() - t0:.3f} s ({e})")
+            return
+        check(False, f"run {name} was not preempted at {stop}")
+
+    try:
+        print(f"family: {cfg.name} targets {FAMILY_TARGETS}, {FAMILY_KW}, "
+              f"{FAMILY_TRAIN}, batches {FAMILY_BATCH} x {FAMILY_SEQ}, "
+              f"cost-model env {FAMILY_ENV} on {FAMILY_HW}; disk free "
+              f"{shutil.disk_usage(tmp).free} B")
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fam_a = run("a")
+        torch.cuda.synchronize()
+        run_a_s = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in kernels.KERNELS}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        man_a = load_json(os.path.join(run_dir("a"), "family.json"))
+        print(f"family: run A {run_a_s:.3f} s, peak device memory "
+              f"{peak:.2f} GiB, launches {launches}")
+        print("family: run A bytes by artifact kind "
+              + json.dumps(_artifact_bytes(run_dir("a"))))
+        for t, v in zip(FAMILY_TARGETS, fam_a):
+            e = man_a["targets"][f"{t:g}"]
+            print(f"  target {t}x: achieved {v.achieved:.4f}x (cost "
+                  f"model), structures removed {sum(v.assignment.values())}"
+                  f", loss {v.loss_before_ft:.5f} -> {v.loss_after_ft:.5f}"
+                  f", shrunk params {v.pruned.num_params()}; stage seconds "
+                  + json.dumps({k: round(s, 4) for k, s in
+                                e["stage_times"].items()}))
+        shutil.rmtree(os.path.join(tmp, "a"))
+
+        t0 = time.perf_counter()
+        preempted("b", (0, "search"))
+        preempted("b", (1, "finetune", FAMILY_STOP))
+        ck = CheckpointManager(os.path.join(run_dir("b"), "t2", "ckpt"),
+                               async_save=False)
+        latest = ck.latest_step()
+        ck.close()
+        check(latest == FAMILY_KW["ckpt_every"],
+              f"run B's killed finetune left checkpoint {latest}")
+        t1 = time.perf_counter()
+        fam_b = run("b")
+        torch.cuda.synchronize()
+        run_b_s = time.perf_counter() - t0
+        man_b = load_json(os.path.join(run_dir("b"), "family.json"))
+        last = [(e["target"], e["stage"]) for e in man_b["executed"]
+                if e["run"] == man_b["runs"]]
+        print(f"family: run B (two kills and the resume) {run_b_s:.3f} s, "
+              f"the resume {time.perf_counter() - t1:.3f} s; it executed "
+              f"{last}; bytes by artifact kind "
+              + json.dumps(_artifact_bytes(run_dir("b"))))
+        check(last == [("2", "finetune")],
+              f"the last resume executed {last}, not target 2's finetune")
+        for t in FAMILY_TARGETS:
+            print(f"  target {t}x resumed: stage seconds " + json.dumps(
+                {k: round(s, 4) for k, s in
+                 man_b["targets"][f"{t:g}"]["stage_times"].items()}))
+
+        speedups = []
+        tokens = calib[0]["tokens"].cuda()
+        for t, va, vb in zip(FAMILY_TARGETS, fam_a, fam_b):
+            la, lb = tree_leaves(va.params), tree_leaves(vb.params)
+            same = {"assignment": va.assignment == vb.assignment,
+                    "achieved": va.achieved == vb.achieved,
+                    "loss_before_ft": va.loss_before_ft == vb.loss_before_ft,
+                    "loss_after_ft": va.loss_after_ft == vb.loss_after_ft,
+                    "params": len(la) == len(lb) and all(
+                        x.dtype == y.dtype and torch.equal(x, y)
+                        for x, y in zip(la, lb))}
+            print(f"  target {t}x: run B equals run A {same}")
+            check(all(same.values()), f"{t}x: run B differs from run A")
+            check(va.achieved >= t, f"{t}x not met: {va.achieved:.4f}x")
+            speedups.append(va.achieved)
+            with np.load(os.path.join(run_dir("b"), f"t{t:g}",
+                                      "db.npz")) as f:
+                orders = {n: SimpleNamespace(mod=mods[n],
+                                             order=f[f"{n}::order"])
+                          for n in va.assignment}
+            check(rows_zero(torch, va.params, orders, va.assignment),
+                  f"{t}x: a masked row is not 0")
+            with torch.no_grad():
+                want = forward(cfg, va.params, tokens)["logits"]
+                got = forward_pruned(va.pruned, tokens)
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            finite = bool(torch.isfinite(got).all())
+            print(f"  target {t}x: shrunk vs masked logits max_abs_err="
+                  f"{err:.4e} (scale {scale:.4e}, tol {STITCHED_TOL:g}*"
+                  f"scale), finite {finite}")
+            check(finite and err <= STITCHED_TOL * scale,
+                  f"{t}x: the shrunk member's logits disagree")
+            del want, got
+        print(f"family: speedups {speedups} (cost model)")
+        check(all(a < b for a, b in zip(speedups, speedups[1:])),
+              f"the family's speedups do not rise: {speedups}")
+        for name in ONESHOT_KERNELS:
+            check(launches[name] > 0, f"{name} never launched on phase 9")
+        del fam_a, fam_b
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # phase 6: Mamba-2 2.7B at full width with 8 of its 64 layers. Each layer's
 # database keeps 81 fp16 snapshots of its 5120 x 2560 out_proj (2.12 GB),
 # all resident on the card in the SnapshotCache: 64 layers (136 GB) would
@@ -2068,7 +2277,14 @@ def main() -> int:
     train_launches = run_train_path(torch, kernels, params, calib, db, fam)
     print(f"phase 8: finetune, resume and rebuild done "
           f"({time.perf_counter() - t0:.2f} s)")
-    del params, calib, db, fam
+    del db, fam
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    family_launches = run_family_path(torch, kernels, params, calib)
+    print(f"phase 9: family engine run, killed and resumed "
+          f"({time.perf_counter() - t0:.2f} s)")
+    del params, calib
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -2085,15 +2301,16 @@ def main() -> int:
         rec["launches"] = launches[name]
         rec["moe_launches"] = moe_launches[name]
         rec["train_launches"] = train_launches[name]
+        rec["family_launches"] = family_launches[name]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     # flash attention's and the SSD pass's device-only times ride beside
     # their eager ones, hessian_accum's and the SSD pass's other shapes
     # beside their main shape, and each kernel's launches on the MoE path
-    # (phase 7) and on the trainer's path (phase 8) beside those on its own
-    # path (phases 4-6)
+    # (phase 7), on the trainer's path (phase 8) and in the family engine's
+    # run A (phase 9) beside those on its own path (phases 4-6)
     extra = ["device_ms", "library_device_ms", "other_shapes",
-             "moe_launches", "train_launches"]
+             "moe_launches", "train_launches", "family_launches"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in records.values()]}))
     print(card_line())

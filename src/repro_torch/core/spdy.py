@@ -287,3 +287,37 @@ def search_family(db: Dict[str, ModuleDB], table: LatencyTable,
         res.n_evals = n_evals
         out[t] = res
     return out
+
+
+def search(db: Dict[str, ModuleDB], table: LatencyTable,
+           target_speedup: float, *, steps: int = 1000, pop: int = 16,
+           mutate_frac: float = 0.1, nbins: int = 1024,
+           eval_fn: Optional[Callable[[Dict[str, int]], float]] = None,
+           eval_batched: Optional[
+               Callable[[List[Dict[str, int]]], np.ndarray]] = None,
+           seed: SeedLike = 0, batched: bool = True,
+           devices: Optional[List] = None,
+           verbose: bool = False) -> SearchResult:
+    """Single-target random-mutation search (paper §3.2): a one-target
+    `search_family`, with the JAX package's signature.
+
+    ``eval_batched`` scores each round's candidates; given both, as the
+    reference's batched path does, ``eval_fn`` goes unused, and given
+    ``eval_fn`` alone it scores the round's candidates one by one. The
+    serial equivalence path (``batched=False``, the scalar DP) and
+    placing populations on several ``devices`` are not ported."""
+    if not batched:
+        raise NotImplementedError(
+            "search(batched=False): the serial dp_select path is not "
+            "ported yet (ROADMAP Queue 1 item 4)")
+    if devices is not None and len(devices) > 1:
+        raise NotImplementedError(
+            "search(devices=[...]) over more than one device: placed SPDY "
+            "populations are not ported yet (ROADMAP Queue 1 item 6)")
+    if eval_batched is None and eval_fn is not None:
+        def eval_batched(assignments):
+            return np.asarray([eval_fn(a) for a in assignments], np.float64)
+    return search_family(
+        db, table, [target_speedup], steps=steps, pop=pop,
+        mutate_frac=mutate_frac, nbins=nbins, eval_batched=eval_batched,
+        seed=seed, verbose=verbose)[target_speedup]

@@ -20,6 +20,7 @@ SSD tolerance). The train step on the card against the CPU: each metric
 1e-3 relative (ROADMAP's loss tolerance), masked rows exactly 0; a killed
 and resumed run on the card bit for bit against an uninterrupted one.
 """
+import json
 import os
 
 # the train step runs under deterministic algorithms, which on CUDA need
@@ -34,7 +35,8 @@ from repro_torch.configs import GPT2_SMALL, MAMBA2_2P7B, smoke_config
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.database import apply_assignment, build_database
 from repro_torch.core.hessian import collect_hessians
-from repro_torch.core.pipeline import masks_from_assignment
+from repro_torch.core.pipeline import (FamilyPreempted, family_run_dir,
+                                       gradual_prune, masks_from_assignment)
 from repro_torch.data import (calibration_batches, make_batch_np,
                               synthetic_stream)
 from repro_torch.launch import train as train_cli
@@ -46,6 +48,7 @@ from repro_torch.kernels.ssd_scan import intra_chunk_inputs, ssd_chunked
 from repro_torch.models import forward, generate, model_init
 from repro_torch.models.transformer import tree_to
 from repro_torch.optim.adamw import tree_leaves
+from repro_torch.runtime.costmodel import HardwareSpec, InferenceEnv
 from repro_torch.train import (Trainer, make_train_state, make_train_step)
 
 
@@ -653,3 +656,51 @@ def test_train_cli_on_the_card(cuda_device, tmp_path, capsys):
                            "--batch", "4", "--seq", "64", "--ckpt-dir",
                            str(tmp_path)]) == 0
     assert "on cuda" in capsys.readouterr().out
+
+
+# the H100 SXM data sheet's bf16 rate and memory bandwidth; the 2e-6 s a
+# module is an assumed launch floor, not a measurement
+H100_SHEET = HardwareSpec(name="h100-sxm-datasheet", peak_flops=989e12,
+                          hbm_bw=3.35e12, ici_bw=0.0, hbm_bytes=80e9,
+                          op_overhead=2e-6)
+
+
+@pytest.mark.cuda
+def test_family_killed_and_resumed_on_the_card_is_bit_identical(
+        cuda_device, tmp_path):
+    """The tiny gradual family on the card, killed mid-finetune of its
+    second target and resumed: each member equal to an uninterrupted
+    run's bit for bit, and the resume ran only that finetune."""
+    cfg = TRAIN_CFG
+    params = model_init(cfg, torch.Generator().manual_seed(1), device="cpu")
+    calib = calibration_batches(cfg, 16, 64, batch=8)
+    env = InferenceEnv(batch=8, seq=64, mode="prefill", hw=H100_SHEET)
+
+    def run(base, **kw):
+        return gradual_prune(
+            cfg, params, env, [1.5, 2.0],
+            lambda s: synthetic_stream(cfg, 16, 64, seed=99, start_step=s),
+            calib, tcfg=TrainConfig(learning_rate=5e-4, warmup_steps=2,
+                                    total_steps=8, distill_logit=1.0,
+                                    distill_token=0.5),
+            finetune_steps=8, search_steps=4, search_pop=4, ckpt_every=4,
+            ckpt_dir=str(base), device=cuda_device, **kw)
+
+    full = run(tmp_path / "a")
+    with pytest.raises(FamilyPreempted):
+        run(tmp_path / "b", stop_after=(1, "finetune", 6))
+    resumed = run(tmp_path / "b")
+    for va, vb in zip(full, resumed):
+        assert va.assignment == vb.assignment and va.achieved >= va.target
+        assert va.loss_before_ft == vb.loss_before_ft
+        assert va.loss_after_ft == vb.loss_after_ft
+        la, lb = tree_leaves(va.params), tree_leaves(vb.params)
+        assert la[0].device.type == "cuda"
+        assert all(torch.equal(x, y) for x, y in zip(la, lb))
+    with open(os.path.join(family_run_dir(cfg, [1.5, 2.0], 0,
+                                          str(tmp_path / "b")),
+                           "family.json")) as f:
+        executed = json.load(f)["executed"]
+    assert [(e["target"], e["stage"]) for e in executed if e["run"] == 2] \
+        == [("2", "finetune")]
+    assert not torch.are_deterministic_algorithms_enabled()

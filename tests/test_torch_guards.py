@@ -12,6 +12,7 @@ from repro_torch.core.database import SnapshotCache, build_database
 from repro_torch.core.hessian import collect_hessians
 from repro_torch.core.latency import build_table
 from repro_torch.core.oneshot import calib_loss_fn, oneshot_prune
+from repro_torch.core.pipeline import gradual_prune
 from repro_torch.core.shrink import shrink
 from repro_torch.configs.base import TrainConfig
 from repro_torch.launch import serve as serve_cli
@@ -51,7 +52,8 @@ def test_port_files_are_found():
             "qwen2_72b.py", "qwen15_110b.py", "internlm2_20b.py",
             "h2o_danube_1p8b.py", "profile_torch_oneshot.py", "adamw.py",
             "schedule.py", "losses.py", "train_step.py", "trainer.py",
-            "manager.py", "pipeline.py", "train.py"} <= names
+            "manager.py", "pipeline.py", "train.py", "integrity.py",
+            "report.py"} <= names
 
 
 ENV = InferenceEnv(batch=2, seq=8, hw=None)
@@ -85,6 +87,8 @@ ENTRY_POINTS = {
     "make_train_step": lambda: make_train_step(TINY, TrainConfig()),
     "Trainer": lambda: Trainer(TINY, TrainConfig(), ckpt_dir="unused"),
     "launch.train": lambda: train_cli.main(["--arch", "gpt2-small"]),
+    "gradual_prune": lambda: gradual_prune(TINY, {}, ENV, [2.0], iter(()),
+                                           []),
 }
 
 
