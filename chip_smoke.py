@@ -11,15 +11,18 @@ Phases (any failure exits non-zero and prints no result):
    shapes the main paths give it (plus ragged, ``d_live``, bf16, GQA,
    window, ``q_offset``, rows without keys and SSD chunk-size cases,
    hessian_accum's splits of N, unaligned inputs and bit-identical
-   repeats, and the whole chunked SSD scan against the token-by-token
-   recurrence), and time kernel, plain version and, where one exists, the
+   repeats, the whole chunked SSD scan against the token-by-token
+   recurrence, and the SSD backward kernel against its plain version at
+   the forward's cases, fp32 and bf16 B/C, and bit for bit), and time
+   kernel, plain version and, where one exists, the
    single PyTorch call that computes the same function, each by CUDA
    events around eager calls (hessian_accum at all three widths of its
    paths; flash attention also at the serving buckets 128-512 and at 8
    prompts of 1024, and by CUDA graph replay as well: its kernel takes
    tens of microseconds, less than its wrapper's host path; the SSD pass
    at the calibration batch's 80 heads and at 40 and 16, eager and by
-   graph replay); phase 7's shapes too: hessian_accum over one expert's
+   graph replay; its backward at a train step's shape, eager and by graph
+   replay); phase 7's shapes too: hessian_accum over one expert's
    dispatch slots at d_ff 6400 with the unfilled rows zeroed,
    obs_downdate over a layer's 16 experts (16, 6400, 4096, gs 1, also
    timed), flash
@@ -28,7 +31,8 @@ Phases (any failure exits non-zero and prints no result):
 3. check the slices on small models: the card's run (kernels) against the
    CPU run (plain versions) on the same weights and Hessians, a 2-layer
    model's prefill logits and served tokens, a 2-layer Mamba-2's
-   logits, Hessians, database errors and greedy tokens, and the
+   logits, Hessians, database errors, greedy tokens and one train step's
+   loss and gradients (the SSD forward and backward kernels), and the
    reference's smoke Phi-3.5-MoE (2 layers, 4 experts top-2) in both MoE
    prune modes: logits, Hessians, database errors, member losses and
    served tokens; and 5 steps of ``make_train_step`` on the small GPT-2
@@ -100,6 +104,23 @@ Phases (any failure exits non-zero and prints no result):
    ``shrink_from_stitched``) and run against its stitched model; then the
    dense model generates from 512-token prompts (prefill through the SSD
    kernel, then the recurrent decode);
+10. (run right after phase 6) gradual ZipLM on Mamba-2: ``gradual_prune``
+   on Mamba-2 2.7B at full width with 2 of its 64 layers and seeded
+   weights, targets 1.15x and 1.3x (the cost-model table's dense split is
+   printed first: at 2 layers the logits head is most of it), phase 9's
+   search, gradual defaults, cost-model table and batches, 8 finetune
+   steps a target with checkpoints every 4, ``overlap=True``. Run A goes
+   through, with the launch counts zeroed just before and read just after
+   (the SSD forward and backward kernels, hessian_accum and obs_downdate
+   must each have launched; JSON ``ssm_family_launches``); a train step
+   of the first member against the dense teacher is timed apart (median
+   ms, tokens/s, one backward launch a layer); run B is killed at step 4
+   of target 1's finetune and resumed: assignments, speedups, losses and
+   every param equal to run A's bit for bit, the resume executing only
+   that finetune. Every member meets its target, masked rows are 0 and
+   each shrunk member's logits are within 5e-2 of scale of its masked
+   model's. Prints stage seconds, both runs' seconds, artifact bytes and
+   the peak device memory;
 7. the MoE slice: Phi-3.5-MoE at full width (d_model 4096, 32 query heads
    on 8 KV heads of 128, 16 experts top-2 of d_ff 6400, vocab 32064) with
    1 of its 32 layers, seeded weights and phase 4's calibration, table
@@ -410,6 +431,8 @@ def check_kernels(torch, kernels):
     del main
     records["flash_attention"] = check_flash(torch, kernels, g)
     records["ssd_intra_chunk"] = check_ssd(torch, kernels, g)
+    records["ssd_intra_chunk_backward"] = check_ssd_backward(torch, kernels,
+                                                             g)
     return records
 
 
@@ -790,6 +813,158 @@ def time_ssd(torch, kernel, plain, g, cases):
     return rows
 
 
+def ssd_backward_close(torch, got, want, bc):
+    """(max abs error over the four gradients, ok): each of dxdt, ddacs,
+    dB and dC within SSD_TOL[bc] of its own largest magnitude (with bf16 B
+    and C both sides form the scores in fp32 and round dB and dC to bf16
+    once; they differ by the sums' order and that rounding)."""
+    tol, err, ok = SSD_TOL[bc], 0.0, True
+    for a, b in zip(got, want):
+        e = float((a.float() - b.float()).abs().max())
+        err = max(err, e)
+        ok = ok and a.dtype == b.dtype and e <= tol * float(
+            b.float().abs().max())
+    return err, ok
+
+
+def ssd_backward_inputs(torch, case, in_dt, bc, g):
+    """The backward's inputs at ``case``: the forward's (as check_ssd forms
+    them, B and C in ``bc``) and fp32 cotangents dy, dstates."""
+    from repro_torch.kernels.ssd_scan import intra_chunk_inputs
+    x, dt, A, B, C = ssd_data(torch, case, getattr(torch, in_dt), g)
+    xdt, dacs, Bb, Cb = intra_chunk_inputs(x, dt, A, B, C, case[-1])
+    b, nc, q, h, p = xdt.shape
+    dy = torch.randn(xdt.shape, device="cuda", generator=g)
+    dst = torch.randn((b, nc, h, p, Bb.shape[-1]), device="cuda",
+                      generator=g)
+    return (xdt, dacs, Bb.to(getattr(torch, bc)), Cb.to(getattr(torch, bc)),
+            dy, dst)
+
+
+def check_ssd_backward(torch, kernels, g):
+    """Phase 2, the SSD backward kernel against
+    ``ssd_intra_chunk_backward_plain`` at the forward's check cases (the
+    reference's in fp32; the calibration and training shape (8, 4, 128,
+    80, 64, 128) and the wide ones with B and C in fp32 and in bf16):
+    each gradient within SSD_TOL of its own scale; two calls bit for bit
+    at the training shape and at a chunk of 256; then
+    ``time_ssd_backward`` at the training shape with bf16 B and C, as a
+    train step of Mamba-2 2.7B gives them."""
+    from repro_torch.kernels import ssd_intra_chunk_backward_plain
+    cases = ([(c, "float32", "float32") for c in SSD_CASES]
+             + [(c, "bfloat16", bc) for c in [SSD_MAIN] + SSD_WIDE
+                for bc in ("float32", "bfloat16")])
+    for case, in_dt, bc in cases:
+        args = ssd_backward_inputs(torch, case, in_dt, bc, g)
+        got = kernels.ssd_intra_chunk_backward(*args)
+        torch.cuda.synchronize()
+        err, ok = ssd_backward_close(
+            torch, got, ssd_intra_chunk_backward_plain(*args), bc)
+        print(f"ssd_intra_chunk_backward (b, s, h, p, n, chunk)={case} x "
+              f"{in_dt}, B/C {bc}: (b, nc, q)={tuple(args[0].shape[:3])} "
+              f"max_abs_err={err:.3e} ({SSD_TOL[bc]:g}*max|plain| each of "
+              f"dxdt, ddacs, dB, dC) {'ok' if ok else 'MISMATCH'}")
+        check(ok, f"ssd_intra_chunk_backward disagrees at {case} B/C {bc}")
+        del args, got
+    for case in (SSD_MAIN, SSD_WIDE[0]):
+        args = ssd_backward_inputs(torch, case, "bfloat16", "bfloat16", g)
+        same = all(torch.equal(a, b) for a, b in zip(
+            kernels.ssd_intra_chunk_backward(*args),
+            kernels.ssd_intra_chunk_backward(*args)))
+        print(f"ssd_intra_chunk_backward {case}: two calls "
+              f"{'bit-identical' if same else 'DIFFER'}")
+        check(same, f"ssd_intra_chunk_backward is not deterministic at "
+              f"{case}")
+        del args
+    return {"name": "ssd_intra_chunk_backward", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:52",
+            "note": "the backward of that kernel, which has none on the "
+                    "TPU: the reference differentiates "
+                    "src/repro/models/ssm.py:93-152",
+            **time_ssd_backward(torch, kernels.ssd_intra_chunk_backward,
+                                ssd_intra_chunk_backward_plain, g)}
+
+
+def time_ssd_backward(torch, kernel, plain, g):
+    """Time ``kernel`` (the SSD backward) at SSD_MAIN, the train step's
+    shape, with bf16 B and C, beside ``plain`` (its plain version): each
+    checked first under SSD_TOL["bfloat16"]; ``ms`` and ``plain_ms`` by
+    ``time_ms``, ``device_ms`` by ``graph_ms``. No single PyTorch call
+    computes the function. The bound counts G and (S o L)^T dy (Q(Q+1)/2
+    x P multiply-adds each a head), W and the states' share of dB (Q x P
+    x N each a head), S, dC and dS^T C (Q(Q+1)/2 x N each a chunk) at the
+    tensor cores' TF32 rate, as ``time_ssd`` counts the forward's same
+    operand types, against each input read and each output written once;
+    the reckoning at the CUDA cores' fp32 rate (the arithmetic the kernel
+    uses today) is printed beside it. ``passes_ms`` splits a call's device
+    time by pass (``passes_ms``)."""
+    args = ssd_backward_inputs(torch, SSD_MAIN, "bfloat16", "bfloat16", g)
+    xdt, dacs, Bb, Cb, dy, dst = args
+    b, nc, q, h, p = xdt.shape
+    n = Bb.shape[-1]
+    err, ok = ssd_backward_close(torch, kernel(*args), plain(*args),
+                                 "bfloat16")
+    check(ok, "ssd_intra_chunk_backward disagrees at the timed shape")
+    rec = {"shape": [b, nc, q, h, p, n], "max_abs_err": err,
+           "ms": time_ms(lambda: kernel(*args)),
+           "device_ms": graph_ms(lambda: kernel(*args)),
+           "plain_ms": time_ms(lambda: plain(*args)), "library_ms": None}
+    tri = q * (q + 1) / 2
+    macs = b * nc * (h * (2 * tri * p + 2 * q * p * n) + 3 * tri * n)
+    nbytes = (4.0 * (2 * xdt.numel() + dst.numel() + dacs.numel())
+              + 2 * Bb.element_size() * Bb.numel()     # B and C in
+              + 4.0 * (xdt.numel() + dacs.numel())     # dxdt, ddacs out
+              + 2 * Bb.element_size() * Bb.numel())    # dB and dC out
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, 2.0 * macs,
+                                                PEAK_TF32)
+    fp32_bound, fp32_by = bound_ms(nbytes, 2.0 * macs, PEAK_FP32)
+    print(f"ssd_intra_chunk_backward (b, nc, q, h, p, n)="
+          f"{(b, nc, q, h, p, n)} B/C bf16: kernel {rec['ms']:.4f} ms "
+          f"eager, {rec['device_ms']:.4f} ms device (graph); plain "
+          f"{rec['plain_ms']:.4f} ms eager; no single PyTorch call; bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
+          f"{2 * macs / 1e9:.3f} GFLOP over {PEAK_TF32 / 1e12:.0f} TFLOP/s "
+          f"TF32, {nbytes / 1e6:.2f} MB over {HBM_BYTES_PER_S / 1e12:.2f} "
+          f"TB/s; {fp32_bound:.4f} ms ({fp32_by}) at the CUDA cores' "
+          f"{PEAK_FP32 / 1e12:.0f} TFLOP/s fp32); "
+          f"{rec['bound_ms'] / rec['ms']:.3f} of the bound eager, "
+          f"{rec['bound_ms'] / rec['device_ms']:.3f} on the device")
+    rec["passes_ms"] = passes_ms(torch, lambda: kernel(*args))
+    print("ssd_intra_chunk_backward device ms a call by pass (profiler, "
+          f"{PROFILED_CALLS} calls): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in rec["passes_ms"].items()))
+    del args, xdt, dacs, Bb, Cb, dy, dst
+    return rec
+
+
+PROFILED_CALLS = 10
+
+
+def passes_ms(torch, fn):
+    """Device milliseconds a call of each kernel ``fn`` launches, by the
+    kernel's name (the SSD backward's are named after its passes), from
+    ``torch.profiler``'s averages over PROFILED_CALLS calls."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_CALLS):
+            fn()
+        torch.cuda.synchronize()
+    import re
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0)
+        # "void (anonymous namespace)::ds_pass<__nv_bfloat16>(...)"
+        m = re.search(r"\b(\w+_pass|sum_parts)\b", e.key)
+        if us and m:
+            out[m[1]] = out.get(m[1], 0.0) + us / 1e3 / PROFILED_CALLS
+    return out
+
+
 def compare_databases(np, db_cpu, db_gpu, label):
     """The card's database against the CPU's. The card's inverse and
     reductions round differently from the CPU's, and Algorithm 1 meets
@@ -961,12 +1136,13 @@ def check_small_serving(torch):
     check(tokens["cuda"] == tokens["cpu"], "served tokens differ")
 
 
-def check_small_ssm(torch):
+def check_small_ssm(torch, kernels):
     """Phase 3, Mamba-2: the reference's smoke shape (2 layers, d_model
     128, 8 SSD heads x 32, state 16, chunk 32, vocab 512) in fp32 on the
     card (the SSD kernel) and on the CPU (its plain version), on the same
     weights: logits within 1e-4 of their scale, Hessians within 1e-4 of
-    theirs, database errors as for the small GPT-2, greedy tokens equal."""
+    theirs, database errors as for the small GPT-2, greedy tokens equal,
+    then a train step (``check_small_ssm_train``)."""
     import numpy as np
     from repro_torch.configs import MAMBA2_2P7B
     from repro_torch.core.database import build_database
@@ -1006,6 +1182,60 @@ def check_small_ssm(torch):
     print(f"small Mamba-2: greedy tokens of {tuple(prompt.shape)} prompts, "
           f"12 steps, card == CPU: {torch.equal(t_gpu, t_cpu)}")
     check(torch.equal(t_gpu, t_cpu), "Mamba-2 greedy tokens differ")
+    check_small_ssm_train(torch, kernels, cfg, p_cpu)
+
+
+def ssm_step_grads(torch, cfg, params, teacher, batch):
+    """(loss, gradients) of one distillation train step's loss on
+    ``params`` (logit 1.0 and token 0.5 distillation against ``teacher``),
+    under the train step's deterministic algorithms."""
+    from repro_torch.distill.losses import distillation_loss
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.train.train_step import deterministic_algorithms
+    live = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                    params)
+    with deterministic_algorithms():
+        total, _ = distillation_loss(cfg, live, teacher, batch, l_logit=1.0,
+                                     l_token=0.5)
+        grads = torch.autograd.grad(total, tree_leaves(live))
+    return float(total.detach()), grads
+
+
+def check_small_ssm_train(torch, kernels, cfg, p_cpu):
+    """Phase 3, a Mamba-2 train step: the loss and every gradient of one
+    distillation step (8 x 64 tokens, two chunks of 32, a teacher of
+    another seed) on the card (the SSD forward and backward kernels) and
+    on the CPU (their plain versions): the loss within 1e-3 relative
+    (ROADMAP's loss tolerance), each gradient within 1e-4 of its own
+    scale (SSD_TOL for the model's fp32 B and C); the backward kernel
+    launched once a layer."""
+    from repro_torch.data import make_batch_np
+    from repro_torch.models import model_init
+    from repro_torch.models.transformer import tree_to
+    teacher = model_init(cfg, torch.Generator().manual_seed(4), device="cpu")
+    batch = make_batch_np(cfg, 8, 64, seed=5)
+    loss_cpu, g_cpu = ssm_step_grads(torch, cfg, p_cpu, teacher, batch)
+    before = kernels.ssd_intra_chunk_backward.launches
+    loss_gpu, g_gpu = ssm_step_grads(
+        torch, cfg, tree_to(p_cpu, "cuda"), tree_to(teacher, "cuda"),
+        {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launched = kernels.ssd_intra_chunk_backward.launches - before
+    lerr = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    worst = max(float((a.cpu() - b).abs().max()) / max(
+        float(b.abs().max()), 1e-30) for a, b in zip(g_gpu, g_cpu))
+    print(f"small Mamba-2 train step: loss card {loss_gpu:.6f} CPU "
+          f"{loss_cpu:.6f} (relative error {lerr:.3e}, tol 1e-3); "
+          f"{len(g_cpu)} gradients, worst error {worst:.3e} of the "
+          f"gradient's scale (tol {SSD_TOL['float32']:g}); backward "
+          f"kernel launches {launched}")
+    check(lerr <= 1e-3, "Mamba-2 train-step loss differs between card and "
+          "CPU")
+    check(worst <= SSD_TOL["float32"],
+          "Mamba-2 gradients differ between card and CPU")
+    check(launched == cfg.num_layers,
+          f"the SSD backward kernel launched {launched} times, not once a "
+          "layer")
 
 
 def check_small_moe(torch):
@@ -1204,9 +1434,11 @@ def check_table_spread(cfg, env, res, rebuilds: int = 2):
 
 
 # phase 5: GPT-2 small served with flash prefill; the stream's prompts
-# pad to the 128/256/512/1024 buckets. 256 requests arrive in about 5 s,
-# faster than 8 slots serve them: tokens/s is the saturated throughput
-SERVE = {"max_len": 1024, "slots": 8, "requests": 256}
+# pad to the 128/256/512/1024 buckets. 128 requests arrive in about 2.6
+# s, faster than 8 slots serve them: tokens/s is the saturated
+# throughput. The decode is host-bound, so the phase's time grows with
+# the requests: 256 took 160-220 s of the script's 1200 s limit
+SERVE = {"max_len": 1024, "slots": 8, "requests": 128}
 STREAM = {"seed": 0, "rate": 50.0, "prompt_lens": (128, 256, 512, 768),
           "steps_range": (16, 64)}
 # shrunk vs stitched logits, bf16 through 12 layers in both (different
@@ -1922,6 +2154,227 @@ def run_ssm_path(torch, kernels):
     return launches
 
 
+# phase 10: gradual ZipLM (core/pipeline.py gradual_prune) on Mamba-2 2.7B
+# at full width with 2 of its 64 layers and seeded weights: every train
+# step runs the SSD forward and backward kernels. A layer's database holds
+# 2.12 GB of snapshots on the card and each target writes them all to its
+# db.npz, so the depth is cut to 2. At 2 layers the unprunable logits head
+# is most of the dense operations, so targets 1.15x and 1.3x (the table's
+# split is printed first). Phase 9's gradual defaults, search and
+# cost-model table; 8 finetune steps a target, checkpoints every 4. Run B
+# is killed at step 4 of target 1's finetune and resumed, and must equal
+# run A bit for bit
+SSM_FAMILY_LAYERS = 2
+SSM_FAMILY_TARGETS = [1.15, 1.3]
+SSM_FAMILY_KW = {"finetune_steps": 8, "ckpt_every": 4, "search_steps": 16,
+                 "search_pop": 8}
+SSM_FAMILY_STOP = 4
+# train steps timed apart, the first two untimed
+SSM_FAMILY_TIMED = 6
+SSM_FAMILY_KERNELS = ("ssd_intra_chunk", "ssd_intra_chunk_backward",
+                      "hessian_accum", "obs_downdate")
+
+
+def time_ssm_train_steps(torch, kernels, cfg, tcfg, student, teacher):
+    """(median ms, backward launches a step) of SSM_FAMILY_TIMED train
+    steps of ``student`` against ``teacher`` on FAMILY_BATCH x FAMILY_SEQ
+    tokens, each ended by a synchronize; the median of all but the first
+    two."""
+    import numpy as np
+    from repro_torch.data import synthetic_stream
+    from repro_torch.train import make_train_state, make_train_step
+    step = make_train_step(cfg, tcfg, teacher_params=teacher, device="cuda")
+    state = make_train_state(cfg, student, tcfg)
+    data = synthetic_stream(cfg, FAMILY_BATCH, FAMILY_SEQ, seed=1)
+    before = kernels.ssd_intra_chunk_backward.launches
+    times = []
+    for _ in range(SSM_FAMILY_TIMED):
+        batch = next(data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(math.isfinite(loss), "Mamba-2 train step: non-finite loss")
+    launched = kernels.ssd_intra_chunk_backward.launches - before
+    del state, step
+    return (float(np.median(times[2:])) * 1e3,
+            launched / SSM_FAMILY_TIMED)
+
+
+def run_ssm_family_path(torch, kernels):
+    """Phase 10: gradual_prune on full-width Mamba-2 2.7B at 2 layers, run
+    through, killed mid-finetune and resumed bit for bit."""
+    import shutil
+    import tempfile
+    from types import SimpleNamespace
+
+    import numpy as np
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import load_json
+    from repro_torch.configs import MAMBA2_2P7B
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.latency import build_table
+    from repro_torch.core.pipeline import (FamilyPreempted, family_run_dir,
+                                           gradual_prune)
+    from repro_torch.core.shrink import layer_drop_plan
+    from repro_torch.core.structures import registry
+    from repro_torch.data import calibration_batches, synthetic_stream
+    from repro_torch.models import forward, model_init
+    from repro_torch.models.pruned import forward_pruned
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.costmodel import HardwareSpec, InferenceEnv
+
+    cfg = MAMBA2_2P7B.replace(num_layers=SSM_FAMILY_LAYERS)
+    targets = SSM_FAMILY_TARGETS
+    env = InferenceEnv(hw=HardwareSpec(**FAMILY_HW), **FAMILY_ENV)
+    tcfg = TrainConfig(**{**FAMILY_TRAIN,
+                          "total_steps": SSM_FAMILY_KW["finetune_steps"]})
+    t0 = time.perf_counter()
+    params = model_init(cfg, torch.Generator().manual_seed(0), device="cuda")
+    calib = calibration_batches(cfg, 32, 512, batch=8)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    mods = registry(cfg)
+    by_name = {m.name: m for m in mods}
+    table = build_table(cfg, env, "costmodel", device="cuda")
+    dense = table.dense_runtime(mods)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ssm_family_")
+
+    def data(step):
+        return synthetic_stream(cfg, FAMILY_BATCH, FAMILY_SEQ, seed=0,
+                                start_step=step)
+
+    def run(name, **kw):
+        return gradual_prune(cfg, params, env, targets, data, calib,
+                             tcfg=tcfg, ckpt_dir=os.path.join(tmp, name),
+                             seed=0, device="cuda", **SSM_FAMILY_KW, **kw)
+
+    def run_dir(name):
+        return family_run_dir(cfg, targets, 0, os.path.join(tmp, name))
+
+    try:
+        print(f"SSM family: {cfg.name} layers={cfg.num_layers} of "
+              f"{MAMBA2_2P7B.num_layers} d_model={cfg.d_model} heads="
+              f"{cfg.ssm_heads}x{cfg.ssm_head_dim} state={cfg.ssm_state} "
+              f"chunk={cfg.ssm_chunk} vocab={cfg.vocab_size} dtype="
+              f"{cfg.dtype}; targets {targets}, {SSM_FAMILY_KW}, {tcfg}, "
+              f"batches {FAMILY_BATCH} x {FAMILY_SEQ}, calibration 32 x 512 "
+              f"in batches of 8, cost-model env {FAMILY_ENV} on "
+              f"{FAMILY_HW}; setup {setup_s:.3f} s; disk free "
+              f"{shutil.disk_usage(tmp).free} B")
+        print(f"SSM family: cost-model dense runtime {dense * 1e3:.6f} ms, "
+              f"of which the logits head {table.base * 1e3:.6f} ms "
+              f"({table.base / dense:.4f}) and the {len(mods)} SSD layers "
+              f"{(dense - table.base) * 1e3:.6f} ms: a member is at most "
+              f"{dense / table.base:.4f}x faster")
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fam_a = run("a")
+        torch.cuda.synchronize()
+        run_a_s = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in kernels.KERNELS}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        man_a = load_json(os.path.join(run_dir("a"), "family.json"))
+        print(f"SSM family: run A {run_a_s:.3f} s, peak device memory "
+              f"{peak:.2f} GiB, launches {launches}")
+        print("SSM family: run A bytes by artifact kind "
+              + json.dumps(_artifact_bytes(run_dir("a"))))
+        for t, v in zip(targets, fam_a):
+            e = man_a["targets"][f"{t:g}"]
+            print(f"  target {t}x: achieved {v.achieved:.4f}x (cost model)"
+                  f", heads removed {v.assignment}, layers dropped "
+                  f"{sum(layer_drop_plan(cfg, v.assignment))}, loss "
+                  f"{v.loss_before_ft:.5f} -> {v.loss_after_ft:.5f}, "
+                  f"shrunk params {v.pruned.num_params()}; stage seconds "
+                  + json.dumps({k: round(s, 4) for k, s in
+                                e["stage_times"].items()}))
+        shutil.rmtree(os.path.join(tmp, "a"))
+
+        step_ms, per_step = time_ssm_train_steps(
+            torch, kernels, cfg, tcfg, fam_a[0].params, params)
+        tokens = FAMILY_BATCH * FAMILY_SEQ
+        print(f"SSM family: a train step of the {targets[0]}x member "
+              f"against the dense teacher, {FAMILY_BATCH} x {FAMILY_SEQ} "
+              f"tokens: {step_ms:.3f} ms (median of steps 3-"
+              f"{SSM_FAMILY_TIMED}), {tokens / step_ms * 1e3:.1f} training "
+              f"tokens/s, {per_step:g} SSD backward launches a step")
+        check(per_step == cfg.num_layers,
+              "the SSD backward kernel did not launch once a layer a step")
+
+        t0 = time.perf_counter()
+        stop = (1, "finetune", SSM_FAMILY_STOP)
+        try:
+            run("b", stop_after=stop)
+            check(False, f"run B was not preempted at {stop}")
+        except FamilyPreempted as e:
+            print(f"SSM family: run B stopped at {stop} in "
+                  f"{time.perf_counter() - t0:.3f} s ({e})")
+        ck = CheckpointManager(os.path.join(run_dir("b"), f"t{targets[1]:g}",
+                                            "ckpt"), async_save=False)
+        latest = ck.latest_step()
+        ck.close()
+        check(latest == SSM_FAMILY_STOP,
+              f"run B's killed finetune left checkpoint {latest}")
+        t1 = time.perf_counter()
+        fam_b = run("b")
+        torch.cuda.synchronize()
+        run_b_s = time.perf_counter() - t0
+        man_b = load_json(os.path.join(run_dir("b"), "family.json"))
+        last = [(e["target"], e["stage"]) for e in man_b["executed"]
+                if e["run"] == man_b["runs"]]
+        print(f"SSM family: run B (the kill and the resume) {run_b_s:.3f} "
+              f"s, the resume {time.perf_counter() - t1:.3f} s; it executed "
+              f"{last}; bytes by artifact kind "
+              + json.dumps(_artifact_bytes(run_dir("b"))))
+        check(last == [(f"{targets[1]:g}", "finetune")],
+              f"the resume executed {last}, not target 2's finetune")
+
+        tokens = calib[0]["tokens"].cuda()
+        for t, va, vb in zip(targets, fam_a, fam_b):
+            la, lb = tree_leaves(va.params), tree_leaves(vb.params)
+            same = {"assignment": va.assignment == vb.assignment,
+                    "achieved": va.achieved == vb.achieved,
+                    "loss_before_ft": va.loss_before_ft == vb.loss_before_ft,
+                    "loss_after_ft": va.loss_after_ft == vb.loss_after_ft,
+                    "params": len(la) == len(lb) and all(
+                        x.dtype == y.dtype and torch.equal(x, y)
+                        for x, y in zip(la, lb))}
+            print(f"  target {t}x: run B equals run A {same}")
+            check(all(same.values()), f"{t}x: run B differs from run A")
+            check(va.achieved >= t, f"{t}x not met: {va.achieved:.4f}x")
+            check(math.isfinite(va.loss_after_ft), f"{t}x: non-finite loss")
+            with np.load(os.path.join(run_dir("b"), f"t{t:g}",
+                                      "db.npz")) as f:
+                orders = {n: SimpleNamespace(mod=by_name[n],
+                                             order=f[f"{n}::order"])
+                          for n in va.assignment}
+            check(rows_zero(torch, va.params, orders, va.assignment),
+                  f"{t}x: a masked row is not 0")
+            with torch.no_grad():
+                want = forward(cfg, va.params, tokens)["logits"]
+                got = forward_pruned(va.pruned, tokens)
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            finite = bool(torch.isfinite(got).all())
+            print(f"  target {t}x: SSD heads per layer "
+                  f"{[l.ssm_heads for l in va.pruned.layers]}, shrunk vs "
+                  f"masked logits max_abs_err={err:.4e} (scale "
+                  f"{scale:.4e}, tol {STITCHED_TOL:g}*scale), finite "
+                  f"{finite}")
+            check(finite and err <= STITCHED_TOL * scale,
+                  f"{t}x: the shrunk member's logits disagree")
+            del want, got
+        for name in SSM_FAMILY_KERNELS:
+            check(launches[name] > 0, f"{name} never launched on phase 10")
+        del fam_a, fam_b, params
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # phase 7: Phi-3.5-MoE at full width with 1 of its 32 layers. In width
 # mode each of a layer's 16 experts keeps 44 fp16 snapshots of its
 # 6400 x 4096 wd: 36.9 GB a layer, all on the card during the build, copied
@@ -2256,7 +2709,7 @@ def main() -> int:
     t0 = time.perf_counter()
     check_small_slice(torch)
     check_small_serving(torch)
-    check_small_ssm(torch)
+    check_small_ssm(torch, kernels)
     check_small_moe(torch)
     print(f"phase 3: small slices agree between card and CPU "
           f"({time.perf_counter() - t0:.2f} s)")
@@ -2294,6 +2747,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
+    ssm_family_launches = run_ssm_family_path(torch, kernels)
+    launches["ssd_intra_chunk_backward"] = ssm_family_launches[
+        "ssd_intra_chunk_backward"]
+    print(f"phase 10: Mamba-2 family engine run, killed and resumed "
+          f"({time.perf_counter() - t0:.2f} s)")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
     moe_launches = run_moe_path(torch, kernels)
     print(f"phase 7: MoE path done ({time.perf_counter() - t0:.2f} s)")
 
@@ -2302,15 +2763,19 @@ def main() -> int:
         rec["moe_launches"] = moe_launches[name]
         rec["train_launches"] = train_launches[name]
         rec["family_launches"] = family_launches[name]
+        rec["ssm_family_launches"] = ssm_family_launches[name]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
-    # flash attention's and the SSD pass's device-only times ride beside
-    # their eager ones, hessian_accum's and the SSD pass's other shapes
+    # flash attention's and the SSD passes' device-only times ride beside
+    # their eager ones (the SSD backward's also split by pass),
+    # hessian_accum's and the SSD pass's other shapes
     # beside their main shape, and each kernel's launches on the MoE path
-    # (phase 7), on the trainer's path (phase 8) and in the family engine's
-    # run A (phase 9) beside those on its own path (phases 4-6)
-    extra = ["device_ms", "library_device_ms", "other_shapes",
-             "moe_launches", "train_launches", "family_launches"]
+    # (phase 7), on the trainer's path (phase 8) and in the family engines'
+    # runs A (phases 9 and 10) beside those on its own path (phases 4-6;
+    # the SSD backward's own path is phase 10)
+    extra = ["note", "device_ms", "library_device_ms", "passes_ms",
+             "other_shapes", "moe_launches", "train_launches", "family_launches",
+             "ssm_family_launches"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in records.values()]}))
     print(card_line())

@@ -102,9 +102,10 @@ def check(err: int, what: str) -> None:
 
 
 def check_no_grad(what: str, *tensors) -> None:
-    """Raise before a launch that autograd would need to see through. A
-    kernel has no backward, so its output would carry no ``grad_fn`` and
-    a backward pass would silently drop the gradients of its inputs."""
+    """Raise before a launch of a kernel without a backward (flash
+    attention's) that autograd would need to see through: its output
+    would carry no ``grad_fn``, and a backward pass would silently drop
+    the gradients of its inputs."""
     import torch
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):

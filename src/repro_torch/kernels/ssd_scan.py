@@ -18,6 +18,11 @@ takes and the shared-memory layout.
 ``ssd_intra_chunk`` launches the kernel for CUDA tensors and uses the
 plain PyTorch version only for tensors on the CPU. It never falls back:
 inputs the kernel does not take, or a kernel that cannot launch, raise.
+It is differentiable: ``SsdIntraChunk`` takes its gradient with the
+backward kernel ``csrc/ssd_scan_bwd.cu`` on CUDA tensors and with
+``ssd_intra_chunk_backward_plain`` on the CPU. The reference has no
+Pallas backward; it differentiates the model twin's jnp pass
+(``models/ssm.py``), whose formula the plain backward writes out.
 
 ``ssd_chunked`` is the port of ``_ssd_chunked_impl`` with the model
 twin's inputs (``models/ssm.py`` ``ssd_chunked``): it pads to whole
@@ -63,6 +68,13 @@ _ENTRIES = {torch.float32: "ssd_intra_chunk_f32",
 _OCCUPANCY = "ssd_intra_chunk_occupancy"
 _SIGNATURES = {**{e: _SIGNATURE for e in _ENTRIES.values()},
                _OCCUPANCY: [_I, _I, _I, ctypes.POINTER(ctypes.c_int)]}
+# the backward kernel (csrc/ssd_scan_bwd.cu): 17 tensors, 7 sizes, stream
+BWD_TILE = 64         # rows and columns of a block's output tile
+BWD_BLOCKS = 512      # blocks its passes 1 and 3 are split to reach
+_BWD_ENTRIES = {torch.float32: "ssd_intra_chunk_bwd_f32",
+                torch.bfloat16: "ssd_intra_chunk_bwd_bf16"}
+_BWD_SIGNATURES = {e: [_P] * 17 + [_I] * 7 + [_P]
+                   for e in _BWD_ENTRIES.values()}
 # (bf16 B/C, p, smem bytes, device index) -> blocks per SM
 _BLOCKS_PER_SM: Dict[Tuple[bool, int, int, int], int] = {}
 
@@ -246,15 +258,8 @@ def launch_plan(xdt: torch.Tensor, B: torch.Tensor) -> SsdPlan:
     return ssd_plan(b * nc, q, h, p, sms, bps)
 
 
-def ssd_intra_chunk(xdt, dacs, B, C) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The intra-chunk pass (see ``ssd_intra_chunk_plain`` for shapes).
-    Counts its kernel launches in ``ssd_intra_chunk.launches`` (one per
-    call, though a chunk above 128 rows also runs a reduction). The kernel
-    has no backward: a launch with grad mode on and an input that requires
-    grad raises (the plain version on the CPU stays differentiable)."""
-    if xdt.device.type == "cpu":
-        return ssd_intra_chunk_plain(xdt, dacs, B, C)
-    build.check_no_grad("ssd_intra_chunk", xdt, dacs, B, C)
+def _launch_forward(xdt, dacs, B, C) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel on CUDA tensors (one launch, counted)."""
     _check(xdt, dacs, B, C)
     b, nc, q, h, p = xdt.shape
     n = B.shape[3]
@@ -280,7 +285,147 @@ def ssd_intra_chunk(xdt, dacs, B, C) -> Tuple[torch.Tensor, torch.Tensor]:
     return y, states
 
 
+class SsdIntraChunk(torch.autograd.Function):
+    """The intra-chunk pass with its gradient: the forward kernel and the
+    backward kernel on CUDA tensors, the plain forward and
+    ``ssd_intra_chunk_backward_plain`` on the CPU. Saves the inputs only
+    (the backward forms the scores and decays again)."""
+
+    @staticmethod
+    def forward(ctx, xdt, dacs, B, C):
+        ctx.save_for_backward(xdt, dacs, B, C)
+        if xdt.device.type == "cpu":
+            return ssd_intra_chunk_plain(xdt, dacs, B, C)
+        return _launch_forward(xdt, dacs, B, C)
+
+    @staticmethod
+    def backward(ctx, dy, dstates):
+        # autograd hands an output that took no part in the loss a zero
+        # cotangent (it materializes the grads)
+        return ssd_intra_chunk_backward(*ctx.saved_tensors, dy.contiguous(),
+                                        dstates.contiguous())
+
+
+def ssd_intra_chunk(xdt, dacs, B, C) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The intra-chunk pass (see ``ssd_intra_chunk_plain`` for shapes),
+    differentiable through ``SsdIntraChunk``. Counts its forward kernel's
+    launches in ``ssd_intra_chunk.launches`` (one per call on CUDA
+    tensors, though a chunk above 128 rows also runs a reduction); the
+    backward kernel counts its own in
+    ``ssd_intra_chunk_backward.launches``."""
+    return SsdIntraChunk.apply(xdt, dacs, B, C)
+
+
 ssd_intra_chunk.launches = 0
+
+
+def ssd_intra_chunk_backward_plain(xdt, dacs, B, C, dy, dstates):
+    """The gradient of the intra-chunk pass in plain PyTorch: (dxdt,
+    ddacs) fp32 and (dB, dC) in B's type, from the forward's inputs and
+    the cotangents dy (b, nc, q, h, p) and dstates (b, nc, h, p, n).
+
+    Per (batch, chunk) and head, with S = C B^T formed from B and C in
+    fp32 (as the forward kernel forms it), L[q, k] = exp(dacs[q] -
+    dacs[k]) for q >= k (else 0), e[q] = exp(dacs[-1] - dacs[q]),
+    G = dy xdt^T and W = B dstates^T:
+    dxdt = (S o L)^T dy + e o W; dC = dS B and dB = dS^T C + sum_h
+    (e o xdt) dstates, with dS = sum_h G o L; and with R = G o S o L,
+    ddacs[q] = sum_k R[q, k] - sum_k R[k, q] - e[q] u[q], u[q] = sum_p
+    xdt[q, p] W[q, p], plus sum_q e[q] u[q] at the chunk's last row."""
+    q = xdt.shape[2]
+    Bf, Cf = B.float(), C.float()
+    S = torch.einsum("bcqn,bckn->bcqk", Cf, Bf)
+    diff = dacs[:, :, :, None, :] - dacs[:, :, None, :, :]  # (b,nc,q,k,h)
+    tril = torch.ones((q, q), dtype=torch.bool, device=xdt.device).tril()
+    L = torch.exp(torch.where(tril[:, :, None], diff, NEG_INF))
+    e = torch.exp(dacs[:, :, -1:, :] - dacs)                 # (b,nc,q,h)
+    GL = torch.einsum("bcqhp,bckhp->bcqkh", dy, xdt) * L
+    dS = GL.sum(-1)
+    W = torch.einsum("bckn,bchpn->bckhp", Bf, dstates)
+    dxdt = (torch.einsum("bcqk,bcqkh,bcqhp->bckhp", S, L, dy)
+            + e[..., None] * W)
+    dC = torch.einsum("bcqk,bckn->bcqn", dS, Bf)
+    dB = (torch.einsum("bcqk,bcqn->bckn", dS, Cf)
+          + torch.einsum("bckh,bckhp,bchpn->bckn", e, xdt, dstates))
+    R = GL * S[..., None]
+    eu = e * (xdt * W).sum(-1)                               # (b,nc,q,h)
+    ddacs = R.sum(3) - R.sum(2) - eu
+    ddacs = torch.cat([ddacs[:, :, :-1], ddacs[:, :, -1:]
+                       + eu.sum(2, keepdim=True)], dim=2)
+    return dxdt, ddacs, dB.to(B.dtype), dC.to(C.dtype)
+
+
+def bwd_plan(bc: int, q: int, h: int, p: int, n: int) -> Tuple[int, int]:
+    """(head groups of the backward's pass 1, (h, p) groups of its pass
+    3): each pass's blocks, (chunk, tile pair) and (chunk, row tile,
+    column tile), split until there are about BWD_BLOCKS, a few for each
+    SM; from the shapes alone, so a call's bits do not depend on the
+    card. Each group sums its share of dS or dB into a workspace, and the
+    shares are added in group order."""
+    nt, ntn = -(-q // BWD_TILE), -(-n // BWD_TILE)
+    hg = min(h, max(1, -(-BWD_BLOCKS // (bc * nt * (nt + 1) // 2))))
+    sg = min(max(1, h * p // BWD_TILE), 65535 // ntn,
+             max(1, -(-BWD_BLOCKS // (bc * nt * ntn))))
+    return hg, sg
+
+
+def _check_backward(xdt, dacs, B, C, dy, dstates):
+    _check(xdt, dacs, B, C)
+    b, nc, q, h, p = xdt.shape
+    n = B.shape[3]
+    for name, t, shape in (("dy", dy, (b, nc, q, h, p)),
+                           ("dstates", dstates, (b, nc, h, p, n))):
+        if t.shape != shape or t.dtype != torch.float32:
+            raise ValueError(f"ssd_intra_chunk_backward: {name} must be "
+                             f"float32 {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.device != xdt.device or not t.is_contiguous():
+            raise ValueError(f"ssd_intra_chunk_backward: {name} must be "
+                             f"contiguous (row-major) on {xdt.device}")
+    if h > 65535 or -(-n // BWD_TILE) > 65535:
+        raise ValueError(f"ssd_intra_chunk_backward: at most 65535 heads "
+                         f"and {65535 * BWD_TILE} state columns (grid "
+                         f"dimensions), got {h} and {n}")
+
+
+def ssd_intra_chunk_backward(xdt, dacs, B, C, dy, dstates):
+    """The gradient of the intra-chunk pass (see
+    ``ssd_intra_chunk_backward_plain``): the backward kernel
+    (``csrc/ssd_scan_bwd.cu``) for CUDA tensors, counted in
+    ``ssd_intra_chunk_backward.launches`` (one per call, though the
+    kernel runs as six passes), and the plain version for tensors on the
+    CPU."""
+    if xdt.device.type == "cpu":
+        return ssd_intra_chunk_backward_plain(xdt, dacs, B, C, dy, dstates)
+    _check_backward(xdt, dacs, B, C, dy, dstates)
+    b, nc, q, h, p = xdt.shape
+    n = B.shape[3]
+    dxdt = torch.empty_like(xdt)
+    ddacs = torch.empty_like(dacs)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    if xdt.numel() == 0:
+        return dxdt, ddacs, dB.zero_(), dC.zero_()
+    bc, nt = b * nc, -(-q // BWD_TILE)
+    hg, sg = bwd_plan(bc, q, h, p, n)
+    f32 = dict(dtype=torch.float32, device=xdt.device)
+    S, dS = (torch.empty((bc, q, q), **f32) for _ in range(2))
+    dS_part = torch.empty((hg, bc, q, q), **f32)
+    dB_part = torch.empty((sg, bc, q, n), **f32)
+    rpart, cpart = (torch.empty((bc, h, nt, q), **f32) for _ in range(2))
+    eu = torch.empty((bc, h, q), **f32)
+    lib = build.load("ssd_scan_bwd", _BWD_SIGNATURES)
+    stream = torch.cuda.current_stream(xdt.device).cuda_stream
+    err = getattr(lib, _BWD_ENTRIES[B.dtype])(
+        *(t.data_ptr() for t in (xdt, dacs, B, C, dy, dstates, dxdt, ddacs,
+                                 dB, dC, S, dS, dS_part, dB_part, rpart,
+                                 cpart, eu)),
+        bc, q, h, p, n, hg, sg, stream)
+    build.check(err, "ssd_intra_chunk_backward")
+    ssd_intra_chunk_backward.launches += 1
+    return dxdt, ddacs, dB, dC
+
+
+ssd_intra_chunk_backward.launches = 0
 
 
 def intra_chunk_inputs(x, dt, A, B, C, chunk: int):
@@ -308,11 +453,9 @@ def ssd_chunked(x, dt, A, B, C, chunk: int,
     """Chunked SSD. x (b, s, h, p), dt (b, s, h) (softplus'ed), A (h,),
     B/C (b, s, n) -> (y (b, s, h, p) in x's type, final_state
     (b, h, p, n) fp32). The intra-chunk pass is ``ssd_intra_chunk``: the
-    kernel for CUDA tensors, its plain version on the CPU; on CUDA it
-    raises where an input requires grad under grad mode (the kernel has no
-    backward)."""
-    if x.device.type != "cpu":
-        build.check_no_grad("ssd_chunked", x, dt, A, B, C, initial_state)
+    kernels (forward and backward) for CUDA tensors, the plain versions on
+    the CPU; the inter-chunk scan and ``y_off`` are plain PyTorch, and
+    autograd takes the gradient through them and ``intra_chunk_inputs``."""
     b, s, h, p = x.shape
     xdt, dacs, Bb, Cb = intra_chunk_inputs(x, dt, A, B, C, chunk)
     nc, n = xdt.shape[1], Bb.shape[-1]

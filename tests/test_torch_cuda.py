@@ -16,9 +16,14 @@ rounds the scores to bf16, as the reference's model twin does, the kernel
 keeps them fp32: a relative 2^-9 per score, summed over up to a chunk of
 terms), and the
 chunked scan 2e-3 against the token-by-token recurrence (the reference's
-SSD tolerance). The train step on the card against the CPU: each metric
-1e-3 relative (ROADMAP's loss tolerance), masked rows exactly 0; a killed
-and resumed run on the card bit for bit against an uninterrupted one.
+SSD tolerance). The SSD backward kernel against its plain version 1e-4
+of each gradient's scale with fp32 B and C, 2e-2 with bf16 (both sides
+form the scores in fp32 and round dB and dC once), and a Mamba-2 train
+step's gradients card against CPU 2e-2 of each gradient's scale (the
+loss 1e-3 relative). The train step on the card against the CPU: each
+metric 1e-3 relative (ROADMAP's loss tolerance), masked rows exactly 0;
+a killed and resumed run on the card bit for bit against an
+uninterrupted one.
 """
 import json
 import os
@@ -43,7 +48,9 @@ from repro_torch.launch import train as train_cli
 from repro_torch.kernels import (flash_attention, flash_attention_plain,
                                  hessian_accum, hessian_accum_plain,
                                  obs_downdate, obs_downdate_plain,
-                                 ssd_intra_chunk, ssd_intra_chunk_plain)
+                                 ssd_intra_chunk, ssd_intra_chunk_backward,
+                                 ssd_intra_chunk_backward_plain,
+                                 ssd_intra_chunk_plain)
 from repro_torch.kernels.ssd_scan import intra_chunk_inputs, ssd_chunked
 from repro_torch.models import forward, generate, model_init
 from repro_torch.models.transformer import tree_to
@@ -532,18 +539,107 @@ def _grad_call(name, device):
 @pytest.mark.parametrize("name", ["flash_attention", "ssd_intra_chunk",
                                   "ssd_chunked"])
 def test_kernel_wrappers_refuse_grad_on_the_card(cuda_device, name):
-    """A launch under grad mode with an input that requires grad raises
-    (the kernel has no backward); under no_grad it launches."""
+    """Flash attention's kernel has no backward: a launch under grad mode
+    with an input that requires grad raises, and under no_grad it
+    launches. The SSD pass has one (``SsdIntraChunk``), so its wrappers
+    no longer refuse (the test keeps its name): under grad mode the
+    forward kernel launches, the result carries a ``grad_fn``, and a
+    backward pass launches the backward kernel once and gives every input
+    a finite gradient; under no_grad only the forward kernel launches."""
     fn, args = _grad_call(name, cuda_device)
-    kernel = flash_attention if name == "flash_attention" \
-        else ssd_intra_chunk
-    before = kernel.launches
-    with pytest.raises(RuntimeError, match="no backward"):
-        fn(*args)
-    assert kernel.launches == before
+    if name == "flash_attention":
+        before = flash_attention.launches
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(*args)
+        assert flash_attention.launches == before
+        with torch.no_grad():
+            out = fn(*args)
+        assert flash_attention.launches == before + 1 and out.grad_fn is None
+        return
+    before = (ssd_intra_chunk.launches, ssd_intra_chunk_backward.launches)
+    out = fn(*args)
+    assert out.grad_fn is not None
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert (ssd_intra_chunk.launches, ssd_intra_chunk_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for a in args:
+        assert a.grad is not None and bool(torch.isfinite(a.grad).all())
     with torch.no_grad():
         out = fn(*args)
-    assert kernel.launches == before + 1 and out.grad_fn is None
+    assert out.grad_fn is None
+    assert (ssd_intra_chunk.launches, ssd_intra_chunk_backward.launches) == \
+        (before[0] + 2, before[1] + 1)
+
+
+def _backward_close(got, want, tol):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max())
+
+
+# b, nc, q, h, p, n: a small case, ragged ones (a chunk of 100 rows,
+# N = 40 and 13, a chunk of 300: five 64-row tiles) and Mamba-2 2.7B's
+# train step at 8 x 512 tokens
+SSD_BWD_CASES = [(2, 2, 32, 4, 32, 16), (2, 1, 100, 3, 128, 40),
+                 (1, 1, 300, 3, 32, 13), (8, 4, 128, 80, 64, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_kernel_matches_plain(cuda_device, case, dtype):
+    """The backward kernel against ``ssd_intra_chunk_backward_plain``:
+    each gradient within 1e-4 (fp32 B and C) or 2e-2 (bf16) of its own
+    scale, and the same bits on a second call."""
+    xdt, dacs, B, C = _intra_chunk_inputs(*case, cuda_device, 0)
+    B, C = B.to(dtype), C.to(dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    b, nc, q, h, p, n = case
+    dy = torch.randn(xdt.shape, device=cuda_device, generator=g)
+    dst = torch.randn((b, nc, h, p, n), device=cuda_device, generator=g)
+    before = ssd_intra_chunk_backward.launches
+    got = ssd_intra_chunk_backward(xdt, dacs, B, C, dy, dst)
+    torch.cuda.synchronize()
+    assert ssd_intra_chunk_backward.launches == before + 1
+    _backward_close(got, ssd_intra_chunk_backward_plain(
+        xdt, dacs, B, C, dy, dst), 1e-4 if dtype == torch.float32 else 2e-2)
+    again = ssd_intra_chunk_backward(xdt, dacs, B, C, dy, dst)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_mamba2_train_step_gradients_on_the_card_match_the_cpu(cuda_device):
+    """The gradients of one distillation step of a 2-layer Mamba-2 (fp32,
+    8 x 64 tokens: two chunks of 32) on the card (the SSD forward and
+    backward kernels) against the CPU's: the loss 1e-3 relative, each
+    gradient within 1e-4 of its own scale (the SSD tolerance for fp32 B
+    and C)."""
+    from repro_torch.distill.losses import distillation_loss
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train.train_step import deterministic_algorithms
+    cfg = MAMBA2_2P7B.replace(name="mamba2-small", num_layers=2, d_model=128,
+                              ssm_state=16, ssm_head_dim=32, ssm_chunk=32,
+                              vocab_size=512, dtype="float32")
+    student = model_init(cfg, torch.Generator().manual_seed(3), device="cpu")
+    teacher = model_init(cfg, torch.Generator().manual_seed(4), device="cpu")
+    batch = make_batch_np(cfg, 8, 64, seed=5)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        live = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                        tree_to(student, dev))
+        with deterministic_algorithms():
+            total, _ = distillation_loss(
+                cfg, live, tree_to(teacher, dev),
+                {k: v.to(dev) for k, v in batch.items()}, l_logit=1.0,
+                l_token=0.5)
+            grads = torch.autograd.grad(total, tree_leaves(live))
+        out[str(dev)] = (float(total.detach()), [g.cpu() for g in grads])
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out[str(cuda_device)]
+    assert l_gpu == pytest.approx(l_cpu, rel=1e-3)
+    for a, w in zip(g_gpu, g_cpu):
+        assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())
 
 
 TRAIN_CFG = GPT2_SMALL.replace(

@@ -22,8 +22,10 @@ from repro_torch.kernels import (flash_attention, flash_attention_plain,
                                  hessian_accum, hessian_accum_plain,
                                  obs_downdate, obs_downdate_plain,
                                  reset_launch_counts)
+from repro_torch.kernels import ssd_scan
 from repro_torch.kernels.hessian_accum import last_wave_fill, split_plan
-from repro_torch.kernels.ssd_scan import (HEAD_DIMS, MAX_CHUNK, SMEM_LIMIT,
+from repro_torch.kernels.ssd_scan import (BWD_BLOCKS, BWD_TILE, HEAD_DIMS,
+                                          MAX_CHUNK, SMEM_LIMIT, bwd_plan,
                                           intra_chunk_inputs, ssd_chunked,
                                           ssd_intra_chunk,
                                           ssd_intra_chunk_plain, ssd_layout,
@@ -360,15 +362,46 @@ def grad_call(name, device):
     return fn, [a.to(device).requires_grad_(True) for a in args]
 
 
+def _grad_fn_names(out):
+    """The names of the autograd nodes ``out`` was computed through."""
+    seen, todo, names = set(), [out.grad_fn], set()
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        names.add(type(node).__name__)
+        todo.extend(fn for fn, _ in node.next_functions)
+    return names
+
+
 @pytest.mark.parametrize("name", GRAD_WRAPPERS)
-def test_kernel_wrappers_refuse_inputs_that_require_grad(name):
-    """Off the CPU a wrapper launches its kernel, which has no backward: a
-    call with grad mode on and an input that requires grad raises before
-    the launch instead of returning a result without a ``grad_fn``. The
-    meta device takes the kernel's branch on a machine without a card."""
+def test_kernel_wrappers_refuse_inputs_that_require_grad(name, monkeypatch):
+    """Off the CPU a wrapper launches its kernel. Flash attention's kernel
+    has no backward: a call with grad mode on and an input that requires
+    grad raises before the launch instead of returning a result without a
+    ``grad_fn``. The SSD pass has one now (``SsdIntraChunk``), so its two
+    wrappers no longer refuse: the contract that replaced the refusal
+    (and keeps this test's name) is that their result carries
+    ``SsdIntraChunk``'s ``grad_fn``, so no gradient is dropped. The meta
+    device takes the kernel's branch on a machine without a card; the SSD
+    forward launch is swapped for a stub that returns empty outputs of
+    the right shapes."""
     fn, args = grad_call(name, "meta")
-    with pytest.raises(RuntimeError, match="no backward"):
-        fn(*args)
+    if name == "flash_attention":
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(*args)
+        return
+
+    def stub(xdt, dacs, B, C):
+        b, nc, q, h, p = xdt.shape
+        return (torch.empty_like(xdt),
+                torch.empty((b, nc, h, p, B.shape[3]), device=xdt.device))
+
+    monkeypatch.setattr(ssd_scan, "_launch_forward", stub)
+    out = fn(*args)
+    assert out.device.type == "meta" and out.shape == args[0].shape
+    assert "SsdIntraChunkBackward" in _grad_fn_names(out)
 
 
 @pytest.mark.parametrize("name", GRAD_WRAPPERS)
@@ -564,3 +597,26 @@ def test_ssd_plan_at_the_calibration_batch_on_an_h100():
         assert plan.groups == 4 and plan.blocks == 128
         assert waves(plan.blocks, 132) == 1
         assert waves(32 * 5, 132) == 2
+
+
+# b * nc, q, h, p, n: the backward's shapes (the train step's, ragged
+# chunks and state sizes, one row, many chunks)
+SSD_BWD_PLANS = [(32, 128, 80, 64, 128), (4, 32, 4, 32, 16),
+                 (2, 100, 3, 128, 40), (1, 300, 3, 32, 13), (1, 1, 2, 16, 8),
+                 (2, 512, 80, 64, 128), (4096, 128, 80, 64, 128)]
+
+
+@pytest.mark.parametrize("bc,q,h,p,n", SSD_BWD_PLANS)
+def test_ssd_backward_plan_splits_within_the_kernels_limits(bc, q, h, p, n):
+    """The backward's head groups and (h, p) groups: each group non-empty,
+    within the grid's limits, and more blocks only while the passes have
+    fewer than BWD_BLOCKS; at the train step's shape 6 head groups (576
+    blocks for pass 1) and 4 (h, p) groups (512 blocks for pass 3)."""
+    hg, sg = bwd_plan(bc, q, h, p, n)
+    nt, ntn = -(-q // BWD_TILE), -(-n // BWD_TILE)
+    assert 1 <= hg <= h and 1 <= sg <= max(1, h * p // BWD_TILE)
+    assert ntn * sg <= 65535
+    assert hg == 1 or bc * nt * (nt + 1) // 2 * (hg - 1) < BWD_BLOCKS
+    assert sg == 1 or bc * nt * ntn * (sg - 1) < BWD_BLOCKS
+    if (bc, q, h, p, n) == (32, 128, 80, 64, 128):
+        assert (hg, sg) == (6, 4)
