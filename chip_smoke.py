@@ -896,9 +896,10 @@ def time_ssd_backward(torch, kernel, plain, g):
     x N each a head), S, dC and dS^T C (Q(Q+1)/2 x N each a chunk) at the
     tensor cores' TF32 rate, as ``time_ssd`` counts the forward's same
     operand types, against each input read and each output written once;
-    the reckoning at the CUDA cores' fp32 rate (the arithmetic the kernel
-    uses today) is printed beside it. ``passes_ms`` splits a call's device
-    time by pass (``passes_ms``)."""
+    the split products the kernel executes (3 TF32 products for G, (S o
+    L)^T dy and the states' share of dB, 2 for W, dC and dS^T C with bf16
+    B and C, 1 bf16 for S) are printed beside it. ``passes_ms`` splits a
+    call's device time by pass."""
     args = ssd_backward_inputs(torch, SSD_MAIN, "bfloat16", "bfloat16", g)
     xdt, dacs, Bb, Cb, dy, dst = args
     b, nc, q, h, p = xdt.shape
@@ -918,7 +919,8 @@ def time_ssd_backward(torch, kernel, plain, g):
               + 2 * Bb.element_size() * Bb.numel())    # dB and dC out
     rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, 2.0 * macs,
                                                 PEAK_TF32)
-    fp32_bound, fp32_by = bound_ms(nbytes, 2.0 * macs, PEAK_FP32)
+    split_flop = 2.0 * b * nc * (h * (3 * 2 * tri * p + 5 * q * p * n)
+                                 + 5 * tri * n)
     print(f"ssd_intra_chunk_backward (b, nc, q, h, p, n)="
           f"{(b, nc, q, h, p, n)} B/C bf16: kernel {rec['ms']:.4f} ms "
           f"eager, {rec['device_ms']:.4f} ms device (graph); plain "
@@ -926,8 +928,9 @@ def time_ssd_backward(torch, kernel, plain, g):
           f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
           f"{2 * macs / 1e9:.3f} GFLOP over {PEAK_TF32 / 1e12:.0f} TFLOP/s "
           f"TF32, {nbytes / 1e6:.2f} MB over {HBM_BYTES_PER_S / 1e12:.2f} "
-          f"TB/s; {fp32_bound:.4f} ms ({fp32_by}) at the CUDA cores' "
-          f"{PEAK_FP32 / 1e12:.0f} TFLOP/s fp32); "
+          f"TB/s; the split products execute {split_flop / 1e9:.3f} "
+          f"GFLOP of TF32, {split_flop / PEAK_TF32 * 1e3:.4f} ms at the "
+          f"peak); "
           f"{rec['bound_ms'] / rec['ms']:.3f} of the bound eager, "
           f"{rec['bound_ms'] / rec['device_ms']:.3f} on the device")
     rec["passes_ms"] = passes_ms(torch, lambda: kernel(*args))
@@ -958,7 +961,7 @@ def passes_ms(torch, fn):
     out = {}
     for e in prof.key_averages():
         us = getattr(e, "device_time_total", 0)
-        # "void (anonymous namespace)::ds_pass<__nv_bfloat16>(...)"
+        # "void (anonymous namespace)::dx_pass<__nv_bfloat16, 64>(...)"
         m = re.search(r"\b(\w+_pass|sum_parts)\b", e.key)
         if us and m:
             out[m[1]] = out.get(m[1], 0.0) + us / 1e3 / PROFILED_CALLS

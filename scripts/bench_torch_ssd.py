@@ -3,6 +3,7 @@
 beside its plain version and the card's bound.
 
     python3 scripts/bench_torch_ssd.py [--tree DIR] [--label NAME] [--ablate]
+    python3 scripts/bench_torch_ssd.py --backward [--tree DIR] [--label NAME]
 
 Imports ``repro_torch`` from ``DIR/src`` (by default this checkout), so
 that two versions of the kernel can be timed in turns on one card: run
@@ -21,6 +22,21 @@ global stores, the xdt copies, TF32 rounding by ``cvt.rna``), launches
 each with the wrapper's plan and prints its device time (graph replay)
 at each timed shape: where the time goes inside the kernel. The switched
 copies compute wrong results and are used for nothing else.
+
+``--backward`` times the backward kernel instead (``csrc/ssd_scan_bwd.cu``,
+``ssd_intra_chunk_backward``): ``chip_smoke.py``'s ``time_ssd_backward``
+at ``SSD_MAIN``, the Mamba-2 2.7B train step's shape (b, nc, Q, H, P, N)
+= (8, 4, 128, 80, 64, 128) with bf16 B and C, checked against its plain
+version first: its eager time (``ms``), its device time by CUDA graph
+replay (``device_ms``), each pass's device time (``passes_ms``, from
+``torch.profiler``), the plain version's eager time and the bound. It
+works on any tree whose ``repro_torch`` has that function, so a parent's
+and a change's backward are timed in turns the same way. With
+``--ablate`` it also builds copies of ``csrc/ssd_scan_bwd.cu`` with one
+part switched off (``BWD_ABLATIONS``: dx_pass's W, G, R and dS, (S o
+L)^T dy products, its score pass or its operand copies; dbc_pass's
+products or copies) and times each through the wrapper by graph replay
+and by pass.
 
 Needs a GPU.
 """
@@ -68,21 +84,55 @@ ABLATIONS = {
 }
 
 
-def build_ablations(ssd_scan, build):
-    """{name: loaded library} of ABLATIONS, compiled in parallel into
+# the same for csrc/ssd_scan_bwd.cu (--backward --ablate): dx_pass's parts,
+# then dbc_pass's
+_NO_W = [("for (int n0 = 0; n0 < slab_w(sl); n0 += 8) {",
+          "for (int n0 = 0; n0 < slab_w(sl) && pl.n < 0; n0 += 8) {")]
+_NO_G = [("for (int p0 = 0; p0 < P; p0 += 8) {",
+          "for (int p0 = 0; p0 < P && pl.n < 0; p0 += 8) {")]
+_NO_RDS = [("          if (c >= KC) continue;\n          const float4 sv",
+            "          if (c >= KC || pl.n > 0) continue;\n          const float4 sv")]
+_NO_DX = [("for (int c = ca; c < KC; ++c) {",
+           "for (int c = ca; c < KC && pl.n < 0; ++c) {")]
+_NO_S = [("for (int kk = 0; kk < w; kk += KSTEP) {",
+          "for (int kk = 0; kk < w && pl.n < 0; kk += KSTEP) {")]
+_NO_RING = [("    if (op >= nops) return;", "    if (op >= nops || pl.n > 0) return;")]
+_NO_DBC_MMA = [("for (int kk = 0; kk < DK; kk += 8) {",
+                "for (int kk = 0; kk < DK && pl.n < 0; kk += 8) {")]
+_NO_DBC_COPIES = [("    if (i >= nk) return;", "    if (i >= nk || pl.n > 0) return;")]
+BWD_ABLATIONS = {
+    "kernel": [],
+    "dx_pass: no W products": _NO_W,
+    "dx_pass: no G products": _NO_G,
+    "dx_pass: no R and dS (decays, sums)": _NO_RDS,
+    "dx_pass: no (S o L)^T dy products": _NO_DX,
+    "dx_pass: no products": _NO_W + _NO_G + _NO_DX,
+    "dx_pass: no score pass": _NO_S,
+    "dx_pass: no operand copies": _NO_RING,
+    "dbc_pass: no products": _NO_DBC_MMA,
+    "dbc_pass: no copies": _NO_DBC_COPIES,
+}
+
+
+def build_ablations(ssd_scan, build, source="ssd_scan", ablations=None,
+                    signatures=None):
+    """{name: loaded library} of ``ablations`` (ABLATIONS of
+    csrc/ssd_scan.cu by default), compiled in parallel into
     build/ssd_ablations/."""
-    src = (build.CSRC / "ssd_scan.cu").read_text()
+    ablations = ABLATIONS if ablations is None else ablations
+    signatures = ssd_scan._SIGNATURES if signatures is None else signatures
+    src = (build.CSRC / f"{source}.cu").read_text()
     out = build.BUILD_DIR.parent / "ssd_ablations"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (name, edits) in enumerate(ABLATIONS.items()):
+    for i, (name, edits) in enumerate(ablations.items()):
         text = src
         for old, new in edits:
             if old not in text:
                 raise RuntimeError(f"ablation {name!r}: {old!r} is not in "
-                                   "csrc/ssd_scan.cu")
+                                   f"csrc/{source}.cu")
             text = text.replace(old, new)
-        cu, so = out / f"v{i}.cu", out / f"libv{i}.so"
+        cu, so = out / f"{source}_v{i}.cu", out / f"lib{source}_v{i}.so"
         cu.write_text(text)
         procs[name] = (so, subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
@@ -93,7 +143,7 @@ def build_ablations(ssd_scan, build):
         if proc.returncode != 0:
             raise RuntimeError(f"ablation {name!r} failed to build:\n{log}")
         lib = ctypes.CDLL(str(so))
-        for entry, argtypes in ssd_scan._SIGNATURES.items():
+        for entry, argtypes in signatures.items():
             getattr(lib, entry).argtypes = argtypes
             getattr(lib, entry).restype = ctypes.c_int
         libs[name] = lib
@@ -134,6 +184,35 @@ def ablate(torch, g):
     return rows
 
 
+def ablate_backward(torch, g):
+    """Each of BWD_ABLATIONS through the wrapper (its library swapped in)
+    at SSD_MAIN with bf16 B and C: device ms a call by graph replay and
+    by pass (profiler)."""
+    from repro_torch.kernels import build, ssd_scan
+    libs = build_ablations(ssd_scan, build, "ssd_scan_bwd", BWD_ABLATIONS,
+                           ssd_scan._BWD_SIGNATURES)
+    args = cs.ssd_backward_inputs(torch, cs.SSD_MAIN, "bfloat16", "bfloat16",
+                                  g)
+    real = build._LIBS.get("ssd_scan_bwd")
+    rows = {}
+    try:
+        for name, lib in libs.items():
+            build._LIBS["ssd_scan_bwd"] = lib
+            call = lambda: ssd_scan.ssd_intra_chunk_backward(*args)  # noqa
+            rows[name] = {"device_ms": cs.graph_ms(call),
+                          "passes_ms": cs.passes_ms(torch, call)}
+            print(f"ssd_intra_chunk_backward ablation: {name}: "
+                  f"{rows[name]['device_ms']:.4f} ms device (graph); "
+                  + ", ".join(f"{k} {v:.4f}"
+                              for k, v in rows[name]["passes_ms"].items()))
+    finally:
+        if real is None:
+            build._LIBS.pop("ssd_scan_bwd", None)
+        else:
+            build._LIBS["ssd_scan_bwd"] = real
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=ROOT,
@@ -141,6 +220,9 @@ def main() -> int:
     ap.add_argument("--label", default=None)
     ap.add_argument("--ablate", action="store_true",
                     help="also time copies of the kernel with parts off")
+    ap.add_argument("--backward", action="store_true",
+                    help="time the backward kernel at the train step's "
+                         "shape instead")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -157,6 +239,16 @@ def main() -> int:
     card, label = cs.card_line(), args.label or args.tree
     print(f"{card}; kernel from {args.tree}")
     g = torch.Generator(device="cuda").manual_seed(0)
+    if args.backward:
+        from repro_torch.kernels.ssd_scan import (
+            ssd_intra_chunk_backward, ssd_intra_chunk_backward_plain)
+        rec = cs.time_ssd_backward(torch, ssd_intra_chunk_backward,
+                                   ssd_intra_chunk_backward_plain, g)
+        result = {"label": label, "card": card, "backward": rec}
+        if args.ablate:
+            result["ablations"] = ablate_backward(torch, g)
+        print(json.dumps(result))
+        return 0
     rows = cs.time_ssd(torch, ssd_intra_chunk, ssd_intra_chunk_plain, g,
                        cs.SSD_TIMED)
     result = {"label": label, "card": card, "shapes": rows}

@@ -68,12 +68,19 @@ _ENTRIES = {torch.float32: "ssd_intra_chunk_f32",
 _OCCUPANCY = "ssd_intra_chunk_occupancy"
 _SIGNATURES = {**{e: _SIGNATURE for e in _ENTRIES.values()},
                _OCCUPANCY: [_I, _I, _I, ctypes.POINTER(ctypes.c_int)]}
-# the backward kernel (csrc/ssd_scan_bwd.cu): 17 tensors, 7 sizes, stream
-BWD_TILE = 64         # rows and columns of a block's output tile
-BWD_BLOCKS = 512      # blocks its passes 1 and 3 are split to reach
+# the backward kernel (csrc/ssd_scan_bwd.cu): 17 tensors, its plan (an int
+# array and its length), stream
+BWD_WAVE = 132        # an H100's SMs: the plan's yardstick of a wave, a
+                      # constant so that the plan (and the bits) depend on
+                      # the shapes alone
+BWD_SETUP = 0.5       # dx_pass's fixed cost a block (scores), in heads
+DBC_TILE = 128        # rows and columns of a dbc_pass block's output tile
+DBC_STAGE_BYTES = 128 * 36 * 4 + 32 * 136 * 4  # one stage of its ring
+DBC_STAGES = 3
+DBC_HPG = 16          # most heads of a dbc_pass group
 _BWD_ENTRIES = {torch.float32: "ssd_intra_chunk_bwd_f32",
                 torch.bfloat16: "ssd_intra_chunk_bwd_bf16"}
-_BWD_SIGNATURES = {e: [_P] * 17 + [_I] * 7 + [_P]
+_BWD_SIGNATURES = {e: [_P] * 17 + [ctypes.POINTER(ctypes.c_int), _I, _P]
                    for e in _BWD_ENTRIES.values()}
 # (bf16 B/C, p, smem bytes, device index) -> blocks per SM
 _BLOCKS_PER_SM: Dict[Tuple[bool, int, int, int], int] = {}
@@ -355,18 +362,140 @@ def ssd_intra_chunk_backward_plain(xdt, dacs, B, C, dy, dstates):
     return dxdt, ddacs, dB.to(B.dtype), dC.to(C.dtype)
 
 
-def bwd_plan(bc: int, q: int, h: int, p: int, n: int) -> Tuple[int, int]:
-    """(head groups of the backward's pass 1, (h, p) groups of its pass
-    3): each pass's blocks, (chunk, tile pair) and (chunk, row tile,
-    column tile), split until there are about BWD_BLOCKS, a few for each
-    SM; from the shapes alone, so a call's bits do not depend on the
-    card. Each group sums its share of dS or dB into a workspace, and the
+@dataclass(frozen=True)
+class BwdLayout:
+    """dx_pass's tile and shared memory, in bytes from its start: the
+    pair's S^T fragments (512 bytes each, lower-triangular ones only on
+    the diagonal), B's rows of the key tile (``ns`` columns, a slab), a
+    ring of ``slots`` slots of ``slot`` bytes (a head's dstates slab, xdt
+    or dy; the score pass stages C's rows there first), two buffers of a
+    head's dacs (the tile's queries, its keys, the chunk's last row), the
+    keys' decays to the chunk's end, and the sums of R and u."""
+    t: int
+    tiles: int
+    ns: int
+    slots: int
+    slot: int
+    off_b: int
+    off_ring: int
+    off_dac: int
+    off_dec: int
+    off_red: int
+    smem: int
+
+    @property
+    def pairs(self) -> int:
+        return self.tiles * (self.tiles + 1) // 2
+
+
+@lru_cache(maxsize=1024)
+def bwd_layout(q: int, p: int, n: int, bf16: bool) -> BwdLayout:
+    """The backward's tile: the chunk padded to 16 rows up to 128 rows (64
+    at ``p`` = 128), else tiles of 64 rows. Within it the widest slab of
+    state columns (128 bf16 or 64 fp32, at most ``n`` rounded up to a
+    k-step), then 4 ring slots before 3, that fit ``SMEM_LIMIT``."""
+    tmax = 64 if p == 128 else MAX_TILE
+    kstep, cols, esize = (16, 128, 2) if bf16 else (8, 64, 4)
+    t = _align16(q) if q <= tmax else SPLIT_TILE
+    tiles, r = -(-q // t), t // 16
+    frags = r * (r + 1) if tiles == 1 else 2 * r * r
+    parts = 8 // ((r + 1) // 2)  # warps sharing a pair of key slices
+    for ns in range(min(cols, -(-n // kstep) * kstep), 0, -kstep):
+        b_bytes = t * (ns + (8 if bf16 else 4)) * esize
+        slot = _align16(max(t * (p + 4) * 4, p * (ns + 4) * 4))
+        for slots in (4, 3):
+            off_b = frags * SCORE_TILE_BYTES
+            off_ring = _align16(off_b + b_bytes)
+            off_dac = off_ring + max(slots * slot, b_bytes)
+            off_dec = off_dac + 2 * (2 * t + 4) * 4
+            off_red = off_dec + t * 4
+            smem = off_red + (r + 2 * parts + 1) * t * 4
+            if smem <= SMEM_LIMIT:
+                return BwdLayout(t=t, tiles=tiles, ns=ns, slots=slots,
+                                 slot=slot, off_b=off_b, off_ring=off_ring,
+                                 off_dac=off_dac, off_dec=off_dec,
+                                 off_red=off_red, smem=smem)
+    raise ValueError(f"ssd_intra_chunk_backward: no layout fits (q, p, n) = "
+                     f"{(q, p, n)}")
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """The backward's launches. dx_pass: ``blocks`` blocks, block ``k``
+    taking (chunk, query tile, key tile, first head, end head) =
+    ``block_work(k)``, ``hg`` head groups a pair. dbc_pass: per chunk,
+    128-row tile and 128-column tile, ``sg`` groups of whole heads for the
+    states' share of dB, then one block for dC and one for dS^T C."""
+    bc: int
+    q: int
+    h: int
+    p: int
+    n: int
+    layout: BwdLayout
+    hg: int
+    sg: int
+
+    @property
+    def blocks(self) -> int:
+        return self.bc * self.layout.pairs * self.hg
+
+    def block_work(self, k: int) -> Tuple[int, int, int, int, int]:
+        rest, grp = divmod(k, self.hg)
+        chunk, pair = divmod(rest, self.layout.pairs)
+        qt = 0
+        while (qt + 1) * (qt + 2) // 2 <= pair:
+            qt += 1
+        return (chunk, qt, pair - qt * (qt + 1) // 2, grp * self.h // self.hg,
+                (grp + 1) * self.h // self.hg)
+
+    def work(self) -> Iterator[Tuple[int, int, int, int, int]]:
+        return (self.block_work(k) for k in range(self.blocks))
+
+    @property
+    def dbc_tiles(self) -> int:
+        """dbc_pass's output tiles a chunk."""
+        return -(-self.q // DBC_TILE) * -(-self.n // DBC_TILE)
+
+    @property
+    def dbc_blocks(self) -> int:
+        return (self.sg + 2) * self.bc * self.dbc_tiles
+
+    @property
+    def dbc_smem(self) -> int:
+        return (DBC_STAGES * DBC_STAGE_BYTES
+                + -(-self.h // self.sg) * DBC_TILE * 4)
+
+    def args(self) -> Tuple[int, ...]:
+        """The kernel's ``Plan``, field by field."""
+        lay = self.layout
+        return (self.bc, self.q, self.h, self.p, self.n, lay.t, lay.tiles,
+                self.hg, self.sg, lay.ns, lay.slots, lay.smem, lay.off_b,
+                lay.off_ring, lay.slot, lay.off_dac, lay.off_dec,
+                lay.off_red, self.dbc_smem)
+
+
+@lru_cache(maxsize=1024)
+def bwd_plan(bc: int, q: int, h: int, p: int, n: int,
+             bf16: bool = True) -> BwdPlan:
+    """From the shapes alone, so a call's bits do not depend on the card.
+    dx_pass's head groups: the count whose waves of ``BWD_WAVE`` blocks,
+    times the largest group's heads plus ``BWD_SETUP``, is least (the
+    fewest on a tie), as ``ssd_plan`` picks the forward's. dbc_pass's
+    groups: about two waves of its heavy blocks, at most ``DBC_HPG`` heads
+    a group. Each group's share of dS or dB goes to a workspace, and the
     shares are added in group order."""
-    nt, ntn = -(-q // BWD_TILE), -(-n // BWD_TILE)
-    hg = min(h, max(1, -(-BWD_BLOCKS // (bc * nt * (nt + 1) // 2))))
-    sg = min(max(1, h * p // BWD_TILE), 65535 // ntn,
-             max(1, -(-BWD_BLOCKS // (bc * nt * ntn))))
-    return hg, sg
+    layout = bwd_layout(q, p, n, bf16)
+    best, best_cost = 1, float("inf")
+    for groups in range(1, h + 1):
+        blocks = bc * layout.pairs * groups
+        if blocks > 2 ** 31 - 1:
+            break
+        cost = waves(blocks, BWD_WAVE) * (BWD_SETUP + -(-h // groups))
+        if cost < best_cost:
+            best, best_cost = groups, cost
+    units = bc * -(-q // DBC_TILE) * -(-n // DBC_TILE)
+    sg = min(h, max(-(-h // DBC_HPG), 2 * BWD_WAVE // units))
+    return BwdPlan(bc=bc, q=q, h=h, p=p, n=n, layout=layout, hg=best, sg=sg)
 
 
 def _check_backward(xdt, dacs, B, C, dy, dstates):
@@ -382,10 +511,10 @@ def _check_backward(xdt, dacs, B, C, dy, dstates):
         if t.device != xdt.device or not t.is_contiguous():
             raise ValueError(f"ssd_intra_chunk_backward: {name} must be "
                              f"contiguous (row-major) on {xdt.device}")
-    if h > 65535 or -(-n // BWD_TILE) > 65535:
-        raise ValueError(f"ssd_intra_chunk_backward: at most 65535 heads "
-                         f"and {65535 * BWD_TILE} state columns (grid "
-                         f"dimensions), got {h} and {n}")
+    plan = bwd_plan(b * nc, q, h, p, n, B.dtype == torch.bfloat16)
+    if plan.blocks > 2 ** 31 - 1 or plan.dbc_blocks > 2 ** 31 - 1:
+        raise ValueError(f"ssd_intra_chunk_backward: too many blocks "
+                         f"({plan.blocks}, {plan.dbc_blocks}) for one launch")
 
 
 def ssd_intra_chunk_backward(xdt, dacs, B, C, dy, dstates):
@@ -393,8 +522,8 @@ def ssd_intra_chunk_backward(xdt, dacs, B, C, dy, dstates):
     ``ssd_intra_chunk_backward_plain``): the backward kernel
     (``csrc/ssd_scan_bwd.cu``) for CUDA tensors, counted in
     ``ssd_intra_chunk_backward.launches`` (one per call, though the
-    kernel runs as six passes), and the plain version for tensors on the
-    CPU."""
+    kernel runs as four passes, six for a chunk above one tile), and the
+    plain version for tensors on the CPU."""
     if xdt.device.type == "cpu":
         return ssd_intra_chunk_backward_plain(xdt, dacs, B, C, dy, dstates)
     _check_backward(xdt, dacs, B, C, dy, dstates)
@@ -405,21 +534,26 @@ def ssd_intra_chunk_backward(xdt, dacs, B, C, dy, dstates):
     dB, dC = torch.empty_like(B), torch.empty_like(C)
     if xdt.numel() == 0:
         return dxdt, ddacs, dB.zero_(), dC.zero_()
-    bc, nt = b * nc, -(-q // BWD_TILE)
-    hg, sg = bwd_plan(bc, q, h, p, n)
+    bc = b * nc
+    plan = bwd_plan(bc, q, h, p, n, B.dtype == torch.bfloat16)
+    tiles = plan.layout.tiles
     f32 = dict(dtype=torch.float32, device=xdt.device)
-    S, dS = (torch.empty((bc, q, q), **f32) for _ in range(2))
-    dS_part = torch.empty((hg, bc, q, q), **f32)
-    dB_part = torch.empty((sg, bc, q, n), **f32)
-    rpart, cpart = (torch.empty((bc, h, nt, q), **f32) for _ in range(2))
-    eu = torch.empty((bc, h, q), **f32)
+    dS = torch.empty((bc, q, q), **f32)
+    dS_part = torch.empty((plan.hg, bc, q, q), **f32) if plan.hg > 1 else None
+    dB_part = torch.empty((plan.sg + 1, bc, q, n), **f32)
+    many = tiles > 1  # the tiles' partial sums
+    dx_part = torch.empty((tiles, bc, q, h, p), **f32) if many else None
+    rpart, cpart = ((torch.empty((bc, h, tiles, q), **f32) if many else None)
+                    for _ in range(2))
+    eu = torch.empty((bc, h, q), **f32) if many else None
     lib = build.load("ssd_scan_bwd", _BWD_SIGNATURES)
+    args = plan.args()
     stream = torch.cuda.current_stream(xdt.device).cuda_stream
     err = getattr(lib, _BWD_ENTRIES[B.dtype])(
-        *(t.data_ptr() for t in (xdt, dacs, B, C, dy, dstates, dxdt, ddacs,
-                                 dB, dC, S, dS, dS_part, dB_part, rpart,
-                                 cpart, eu)),
-        bc, q, h, p, n, hg, sg, stream)
+        *(t.data_ptr() if t is not None else None
+          for t in (xdt, dacs, B, C, dy, dstates, dxdt, ddacs, dB, dC, dS,
+                    dS_part, dB_part, rpart, cpart, eu, dx_part)),
+        (ctypes.c_int * len(args))(*args), len(args), stream)
     build.check(err, "ssd_intra_chunk_backward")
     ssd_intra_chunk_backward.launches += 1
     return dxdt, ddacs, dB, dC

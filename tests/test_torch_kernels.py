@@ -24,8 +24,9 @@ from repro_torch.kernels import (flash_attention, flash_attention_plain,
                                  reset_launch_counts)
 from repro_torch.kernels import ssd_scan
 from repro_torch.kernels.hessian_accum import last_wave_fill, split_plan
-from repro_torch.kernels.ssd_scan import (BWD_BLOCKS, BWD_TILE, HEAD_DIMS,
-                                          MAX_CHUNK, SMEM_LIMIT, bwd_plan,
+from repro_torch.kernels.ssd_scan import (BWD_SETUP, BWD_WAVE, DBC_HPG,
+                                          DBC_TILE, HEAD_DIMS, MAX_CHUNK,
+                                          SMEM_LIMIT, bwd_layout, bwd_plan,
                                           intra_chunk_inputs, ssd_chunked,
                                           ssd_intra_chunk,
                                           ssd_intra_chunk_plain, ssd_layout,
@@ -511,6 +512,88 @@ def test_ssd_split_tf32_arithmetic_holds_the_fp32_tolerance(case, dtype):
                        for g, w in zip(single, want))
 
 
+def _ssd_bwd_emulated(xdt, dacs, B, C, dy, dstates, split=True):
+    """The backward kernel's arithmetic (csrc/ssd_scan_bwd.cu), fp32 out:
+    S exact from bf16 B and C (bf16 MMA) or in split TF32 from fp32; G^T =
+    xdt dy^T, (S o L)^T dy and the states' share of dB in split TF32 (3
+    products); W = B dstates^T, dC = dS B and dS^T C in 2 (lo*B + hi*B)
+    with bf16 B and C, 3 with fp32. With ``split=False`` every product is
+    a single TF32 one."""
+    q = xdt.shape[2]
+    exact = B.dtype == torch.bfloat16
+    Bf, Cf = B.float(), C.float()
+    full = 3 if split else 1
+    half = (2 if exact else 3) if split else 1
+    S = (Cf @ Bf.transpose(-1, -2) if exact
+         else _split_mm(Cf, Bf.transpose(-1, -2), full))     # (b,nc,q,k)
+    diff = dacs[:, :, :, None, :] - dacs[:, :, None, :, :]  # (b,nc,q,k,h)
+    tril = torch.ones((q, q), dtype=torch.bool).tril()[:, :, None]
+    L = torch.where(tril, torch.exp(torch.where(tril, diff, 0.0)), 0.0)
+    e = torch.exp(dacs[:, :, -1:, :] - dacs)                  # (b,nc,q,h)
+    xh, yh = xdt.permute(0, 1, 3, 2, 4), dy.permute(0, 1, 3, 2, 4)
+    Gt = _split_mm(xh, yh.transpose(-1, -2), full)            # (b,nc,h,k,q)
+    GL = Gt.permute(0, 1, 4, 3, 2) * L                         # (b,nc,q,k,h)
+    dS = GL.sum(-1)
+    R = GL * S[..., None]
+    M = (S[..., None] * L).permute(0, 1, 4, 3, 2)              # (b,nc,h,k,q)
+    # W^T = dstates B^T: dstates split, B exact when bf16
+    W = _split_mm(dstates, Bf[:, :, None].transpose(-1, -2),
+                  half).transpose(-1, -2)                      # (b,nc,h,k,p)
+    dx = (_split_mm(M, yh, full) + e.permute(0, 1, 3, 2)[..., None] * W)
+    u = (xh * W).sum(-1).permute(0, 1, 3, 2)                   # (b,nc,q,h)
+    b, nc, _, h, p = xdt.shape
+    xe = (xdt * e[..., None]).reshape(b, nc, q, h * p)
+    dB = (_split_mm(xe, dstates.reshape(b, nc, h * p, -1), full)
+          + _split_mm(dS.transpose(-1, -2), Cf, half))
+    dC = _split_mm(dS, Bf, half)
+    eu = e * u
+    ddacs = R.sum(3) - R.sum(2) - eu
+    ddacs = torch.cat([ddacs[:, :, :-1], ddacs[:, :, -1:]
+                       + eu.sum(2, keepdim=True)], dim=2)
+    return dx.permute(0, 1, 3, 2, 4), ddacs, dB, dC
+
+
+def _ssd_bwd_cotangents(case, xdt, n):
+    b, nc, q, h, p = xdt.shape
+    rng = np.random.default_rng(sum(case) + 1)
+    return (torch.from_numpy(rng.standard_normal(xdt.shape)
+                             .astype(np.float32)),
+            torch.from_numpy(rng.standard_normal((b, nc, h, p, n))
+                             .astype(np.float32)))
+
+
+@pytest.mark.parametrize("case", SSD_EMULATED, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32 B/C", "bf16 B/C"])
+def test_ssd_backward_split_tf32_arithmetic_holds_the_fp32_tolerance(
+        case, dtype):
+    """The backward kernel's split TF32 against
+    ``ssd_intra_chunk_backward_plain`` (on B and C in fp32: the kernel's
+    bf16 scores and bf16 operands are exact), each gradient within 1e-4
+    of its own scale; a single TF32 product beside it, printed. At the
+    80-head case a single product misses 1e-4 of scale (ddacs too, whose
+    row and column sums of R cancel): it is why the kernel pays for the
+    split."""
+    xdt, dacs, B, C = _ssd_case_inputs(case, dtype)
+    dy, dstates = _ssd_bwd_cotangents(case, xdt, B.shape[-1])
+    want = ssd_scan.ssd_intra_chunk_backward_plain(
+        xdt, dacs, B.float(), C.float(), dy, dstates)
+    split = _ssd_bwd_emulated(xdt, dacs, B, C, dy, dstates)
+    single = _ssd_bwd_emulated(xdt, dacs, B, C, dy, dstates, split=False)
+    missed = []
+    for name, got, one, w in zip(("dxdt", "ddacs", "dB", "dC"), split,
+                                 single, want):
+        scale = float(w.abs().max())
+        err, err1 = (float((x - w).abs().max()) for x in (got, one))
+        print(f"{case} {dtype}: {name} split TF32 {err / scale:.2e} of "
+              f"scale, single TF32 {err1 / scale:.2e} (scale {scale:.2e})")
+        assert err <= SSD_TOL * scale, name
+        if err1 > SSD_TOL * scale:
+            missed.append(name)
+    if case[2] == 80:
+        assert missed, "a single TF32 product held 1e-4 of scale"
+
+
 def test_tf32_rounding_is_to_nearest_ties_away():
     one = 1.0 + 2.0 ** -10  # the TF32 step above 1
     x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12, -1.0 - 2.0 ** -11,
@@ -608,15 +691,94 @@ SSD_BWD_PLANS = [(32, 128, 80, 64, 128), (4, 32, 4, 32, 16),
 
 @pytest.mark.parametrize("bc,q,h,p,n", SSD_BWD_PLANS)
 def test_ssd_backward_plan_splits_within_the_kernels_limits(bc, q, h, p, n):
-    """The backward's head groups and (h, p) groups: each group non-empty,
-    within the grid's limits, and more blocks only while the passes have
-    fewer than BWD_BLOCKS; at the train step's shape 6 head groups (576
-    blocks for pass 1) and 4 (h, p) groups (512 blocks for pass 3)."""
-    hg, sg = bwd_plan(bc, q, h, p, n)
-    nt, ntn = -(-q // BWD_TILE), -(-n // BWD_TILE)
-    assert 1 <= hg <= h and 1 <= sg <= max(1, h * p // BWD_TILE)
-    assert ntn * sg <= 65535
-    assert hg == 1 or bc * nt * (nt + 1) // 2 * (hg - 1) < BWD_BLOCKS
-    assert sg == 1 or bc * nt * ntn * (sg - 1) < BWD_BLOCKS
+    """The backward's head groups (dx_pass) and groups of the states'
+    product (dbc_pass), from the shapes alone: each group non-empty and
+    within the kernels' limits (at most DBC_HPG heads a dbc_pass group,
+    its shared memory within SMEM_LIMIT, a launch's blocks within one
+    grid dimension); dx_pass's groups minimise waves of BWD_WAVE blocks x
+    (BWD_SETUP + the largest group's heads), the fewest on a tie; dbc_pass
+    takes about two waves of heavy blocks. At the train step's shape: one
+    128-row tile, 4 head groups of 20 heads (128 blocks, one wave on 132
+    SMs), 8 groups of 10 heads in dbc_pass (256 heavy blocks)."""
+    for bf16 in (True, False):
+        plan = bwd_plan(bc, q, h, p, n, bf16)
+        pairs = plan.layout.pairs
+        assert 1 <= plan.hg <= h and 1 <= plan.sg <= h
+        assert -(-h // plan.sg) <= DBC_HPG
+        assert plan.blocks == bc * pairs * plan.hg <= 2 ** 31 - 1
+        assert plan.dbc_blocks <= 2 ** 31 - 1
+        assert plan.dbc_smem <= SMEM_LIMIT
+
+        def cost(g):
+            return (waves(bc * pairs * g, BWD_WAVE)
+                    * (BWD_SETUP + -(-h // g)))
+
+        assert plan.hg == min(range(1, h + 1), key=lambda g: (cost(g), g))
+        units = bc * -(-q // DBC_TILE) * -(-n // DBC_TILE)
+        assert plan.sg == min(h, max(-(-h // DBC_HPG), 2 * BWD_WAVE // units))
+        assert len(plan.args()) == 19
     if (bc, q, h, p, n) == (32, 128, 80, 64, 128):
-        assert (hg, sg) == (6, 4)
+        plan = bwd_plan(bc, q, h, p, n, True)
+        assert (plan.layout.t, plan.layout.tiles, plan.layout.slots) == \
+            (128, 1, 4)
+        assert (plan.hg, plan.blocks, waves(plan.blocks, 132)) == (4, 128, 1)
+        assert (plan.sg, plan.sg * bc) == (8, 256)
+
+
+@pytest.mark.parametrize("p", HEAD_DIMS)
+def test_ssd_backward_layout_fits_every_shape_the_wrapper_takes(p):
+    """Every chunk of 1..512 rows, N in {1, 13, 40, 128, 256}, bf16 and
+    fp32 B/C: a tile of whole 16-row slices (the chunk padded up to 128
+    rows, 64 at P = 128, else 64-row tiles), a slab of whole k-steps,
+    3 or 4 ring slots that hold a head's xdt, dy and dstates slab, the
+    regions aligned and in order, within SMEM_LIMIT."""
+    tmax = 64 if p == 128 else 128
+    for bf16 in (True, False):
+        kstep, esize = (16, 2) if bf16 else (8, 4)
+        for n in (1, 13, 40, 128, 256):
+            for q in range(1, MAX_CHUNK + 1):
+                lay = bwd_layout(q, p, n, bf16)
+                t, r = lay.t, lay.t // 16
+                assert t % 16 == 0 and t <= tmax
+                assert t * (lay.tiles - 1) < q <= t * lay.tiles
+                if q <= tmax:
+                    assert (t, lay.tiles) == (-(-q // 16) * 16, 1)
+                else:
+                    assert t == 64
+                assert lay.ns % kstep == 0 and 0 < lay.ns <= 256 // esize
+                assert lay.ns <= -(-n // kstep) * kstep
+                assert lay.slots in (3, 4)
+                assert lay.slot >= max(t * (p + 4) * 4,
+                                       p * (lay.ns + 4) * 4)
+                frags = r * (r + 1) if lay.tiles == 1 else 2 * r * r
+                b_bytes = t * (lay.ns + (8 if bf16 else 4)) * esize
+                regions = [0, lay.off_b, lay.off_ring, lay.off_dac,
+                           lay.off_dec, lay.off_red, lay.smem]
+                assert all(x % 16 == 0 for x in regions[:-1])
+                assert regions == sorted(regions)
+                assert lay.off_b == frags * 512
+                assert lay.off_ring >= lay.off_b + b_bytes
+                assert lay.off_dac - lay.off_ring >= max(
+                    lay.slots * lay.slot, b_bytes)
+                assert lay.off_dec - lay.off_dac == 2 * (2 * t + 4) * 4
+                parts = 8 // ((r + 1) // 2)
+                assert lay.smem - lay.off_red == (r + 2 * parts + 1) * t * 4
+                assert lay.smem <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("bc,q,h,p,n", SSD_BWD_PLANS)
+def test_ssd_backward_plan_covers_every_chunk_tile_pair_and_head_once(
+        bc, q, h, p, n):
+    """dx_pass's blocks, as the kernel decodes them: every (chunk, query
+    tile, key tile at or before it, head) exactly once, each block a
+    non-empty run of heads."""
+    plan = bwd_plan(bc, q, h, p, n)
+    tiles = plan.layout.tiles
+    got = []
+    for chunk, qt, kt, lo, hi in plan.work():
+        assert 0 <= kt <= qt < tiles and lo < hi
+        got.extend((chunk, qt, kt, hd) for hd in range(lo, hi))
+    assert len(got) == len(set(got))
+    assert set(got) == {(chunk, qt, kt, hd) for chunk in range(bc)
+                        for qt in range(tiles) for kt in range(qt + 1)
+                        for hd in range(h)}
