@@ -38,8 +38,9 @@ Phases (any failure exits non-zero and prints no result):
    served tokens; and 5 steps of ``make_train_step`` on the small GPT-2
    (the dense model as teacher, a member's masks, 2 microbatches): every
    metric within 1e-3 relative, the masked rows exactly 0 on both;
-4. the main path: ``oneshot_prune`` on full-width GPT-2 small (12 layers,
-   d_model 768, 12 heads, d_ff 3072, vocab 50257) with seeded weights,
+4. the main path: ``oneshot_prune`` on full-width GPT-2 small (6 of its
+   12 layers, d_model 768, 12 heads, d_ff 3072, vocab 50257; phases 5, 8
+   and 9 run the same model) with seeded weights,
    numpy calibration batches, a latency table measured on the card and
    targets 1.5x/2x/3x. The kernels' launch counts are zeroed just before
    and read just after; each kernel must have launched. Then the family
@@ -137,6 +138,30 @@ Phases (any failure exits non-zero and prints no result):
    flash_attention must each have launched. It prints each stage's
    seconds, the peak device memory, the snapshots' bytes and the seconds
    of their round trip through host memory.
+11. (run right after phase 7, on its dense model and calibration batches)
+   gradual ZipLM on Phi-3.5-MoE in expert mode: ``gradual_prune`` to
+   1.3x and 1.6x on the cost-model table of phases 9 and 10 (its share
+   that no unit can remove, and the ceiling it implies, printed first),
+   4 finetune steps a target of 8 x 512 with the gradual defaults,
+   checkpoints every 4 (each target's removed once its finetune has
+   returned, ``keep_checkpoints=False``: the card's machine caps a call's
+   disk writes at 45 GiB), search 16 candidates in populations of 8,
+   ``overlap=True``; the launch counts zeroed just before and read just
+   after (hessian_accum must have launched, flash_attention must not:
+   attention is dense at 512 tokens; JSON ``moe_family_launches``). Every
+   member meets its target, drops experts whole, keeps its masked rows (a
+   dropped expert's ``wd`` rows, a removed KV group's ``wo`` rows) at 0
+   after the finetune, and its shrunk model's logits are within 5e-2 of
+   scale of its masked model's (no token dropped on the masked side).
+   Then the last member's train step (dense teacher, its masks) is run
+   twice for 2 steps from one state: params, m and v bit-equal (digests,
+   ``state_digest``). Prints each target's stage seconds, the run's
+   seconds, the peak device memory and the bytes of each artifact kind;
+12. two of the port's examples on the card through their ``main`` with
+   their defaults: ``examples/torch_quickstart.py`` and
+   ``examples/torch_oneshot_prune_arch.py --arch phi3.5-moe-42b-a6.6b``;
+   every member meets its target, and hessian_accum and obs_downdate
+   launch.
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 product on the
 card is a full fp32 product and the fp32 tolerances below hold. The train
@@ -164,6 +189,13 @@ PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
 HBM_BYTES_PER_S = 3.35e12
+# the GPT-2 small phases (4, 5, 8 and 9) run 6 of its 12 layers at full
+# width: with phases 11 and 12 added the script took 1302 s of its 1200 s
+# at 12 layers on an NVIDIA H100 80GB HBM3 at 700 W. Phase 6 stays at 8
+# Mamba-2 layers: at 4 its measured table's unprunable share (0.635 of
+# 1.25 ms) puts its 2x target out of reach. The serving and training CLIs
+# of phases 5 and 8 run the whole model
+MAIN_LAYERS = 6
 # the main path's measured latency table: each module level the mean of
 # 50 calls after 5 untimed ones
 LATENCY_KW = {"reps": 50, "warmup": 5}
@@ -1065,16 +1097,19 @@ def rows_zero(torch, params, db, assignment) -> bool:
     return True
 
 
-def check_small_train(torch, cfg, p_cpu, db, assignment):
-    """Phase 3, training: 5 steps of ``make_train_step`` on the small
-    GPT-2's stitched member, the dense model as teacher, the member's
+def check_small_train(torch, cfg, p_cpu, db, assignment, what="small"):
+    """Phase 3, training: 5 steps of ``make_train_step`` on a small
+    model's stitched member, the dense model as teacher, the member's
     masks and 2 microbatches, on the card and on the CPU: every metric
     within 1e-3 relative (ROADMAP's loss tolerance), the masked rows
-    exactly 0 on both."""
+    exactly 0 on both. Returns, for an MoE model, the most (token,
+    expert) assignments that one MoE layer sent past its experts'
+    capacity in a microbatch (0 without experts)."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core.database import apply_assignment
     from repro_torch.core.pipeline import masks_from_assignment
     from repro_torch.data import make_batch_np
+    from repro_torch.models import moe
     from repro_torch.models.transformer import tree_to
     from repro_torch.train import make_train_state, make_train_step
 
@@ -1082,24 +1117,45 @@ def check_small_train(torch, cfg, p_cpu, db, assignment):
                        microbatches=2, distill_logit=1.0, distill_token=0.5)
     student = apply_assignment(cfg, p_cpu, db, assignment)
     masks = masks_from_assignment(cfg, student, db, assignment)
+    overflow = []
+    route = moe.route
+
+    def counting_route(router, xf, k):
+        out = route(router, xf, k)
+        counts = torch.bincount(out[2].reshape(-1), minlength=router.shape[-1])
+        overflow.append(int((counts - moe.capacity(xf.shape[0], cfg))
+                            .clamp_min(0).sum()))
+        return out
+
     logs, zero = {}, {}
-    for dev in ("cpu", "cuda"):
-        step = make_train_step(cfg, tcfg, teacher_params=p_cpu, masks=masks,
-                               device=dev)
-        state = make_train_state(cfg, tree_to(student, dev), tcfg)
-        logs[dev] = []
-        for i in range(5):
-            state, m = step(state, make_batch_np(cfg, 8, 64, seed=2, step=i))
-            logs[dev].append({k: float(v) for k, v in m.items()})
-        zero[dev] = rows_zero(torch, state.params, db, assignment)
+    moe.route = counting_route
+    try:
+        for dev in ("cpu", "cuda"):
+            step = make_train_step(cfg, tcfg, teacher_params=p_cpu,
+                                   masks=masks, device=dev)
+            state = make_train_state(cfg, tree_to(student, dev), tcfg)
+            logs[dev] = []
+            for i in range(5):
+                state, m = step(state, make_batch_np(cfg, 8, 64, seed=2,
+                                                     step=i))
+                logs[dev].append({k: float(v) for k, v in m.items()})
+            zero[dev] = rows_zero(torch, state.params, db, assignment)
+    finally:
+        moe.route = route
     worst = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
                 for w, g in zip(logs["cpu"], logs["cuda"]) for k in w)
-    print(f"small train: 5 steps (teacher, masks, 2 microbatches) card vs "
+    over = max(overflow, default=0)
+    print(f"{what} train: 5 steps (teacher, masks, 2 microbatches) card vs "
           f"CPU: worst metric relative error {worst:.3e} (tol 1e-3); "
           f"losses card {[round(m['loss'], 5) for m in logs['cuda']]}; "
-          f"masked rows 0: {zero}")
-    check(worst <= 1e-3, "train-step metrics differ between card and CPU")
-    check(all(zero.values()), "a masked row is not 0 after training")
+          f"masked rows 0: {zero}"
+          + (f"; most assignments past an expert's capacity in a "
+             f"microbatch's layer {over}" if cfg.num_experts else ""))
+    check(worst <= 1e-3, f"{what} train-step metrics differ between card "
+          "and CPU")
+    check(all(zero.values()), f"{what}: a masked row is not 0 after "
+          "training")
+    return over
 
 
 def check_small_serving(torch):
@@ -1249,7 +1305,8 @@ def check_small_moe(torch):
     then in each MoE prune mode the database errors as for the small
     GPT-2, the stitched members' losses within 1e-3 relative, and the
     engine's greedy tokens (flash prefill) equal for the dense model and a
-    shrunk member."""
+    shrunk member; in expert mode last, five train steps of the 2x member
+    (``check_small_train``) with an expert over its capacity."""
     import numpy as np
     from repro_torch.configs import smoke_config
     from repro_torch.core.database import apply_assignment, build_database
@@ -1324,17 +1381,25 @@ def check_small_moe(torch):
                   + (f" (expert widths {widths})" if member != "dense"
                      else ""))
             check(same, f"MoE {mode} {member}: served tokens differ")
+        if mode == "expert":
+            # the member's train steps, with dropped experts' wd rows
+            # masked; the dispatch must overflow, so that its dropped
+            # slot's scatters and gathers run backward on the card
+            over = check_small_train(torch, cfg, p_cpu, db_cpu, a,
+                                     f"small MoE ({mode})")
+            check(over > 0, "small MoE train: no expert overflowed its "
+                  "capacity")
 
 
 def run_main_path(torch, kernels):
-    """Phase 4: oneshot_prune on full-width GPT-2 small."""
+    """Phase 4: oneshot_prune on full-width GPT-2 small at MAIN_LAYERS."""
     from repro_torch.configs import GPT2_SMALL
     from repro_torch.core.oneshot import oneshot_prune
     from repro_torch.data import calibration_batches
     from repro_torch.models import model_init
     from repro_torch.runtime.costmodel import InferenceEnv
 
-    cfg = GPT2_SMALL
+    cfg = GPT2_SMALL.replace(num_layers=MAIN_LAYERS)
     t0 = time.perf_counter()
     params = model_init(cfg, torch.Generator().manual_seed(0), device="cuda")
     calib = calibration_batches(cfg, 32, 512, batch=8)
@@ -1444,7 +1509,7 @@ def check_table_spread(cfg, env, res, rebuilds: int = 2):
 SERVE = {"max_len": 1024, "slots": 8, "requests": 128}
 STREAM = {"seed": 0, "rate": 50.0, "prompt_lens": (128, 256, 512, 768),
           "steps_range": (16, 64)}
-# shrunk vs stitched logits, bf16 through 12 layers in both (different
+# shrunk vs stitched logits, bf16 through every layer in both (different
 # GEMM shapes round differently): max abs error within 5e-2 of the scale
 STITCHED_TOL = 5e-2
 
@@ -1479,7 +1544,7 @@ def serve_family(torch, kernels, params, calib, db, fam):
                                    FamilyServer, PrunedServeModel,
                                    ServeEngine, synthetic_requests)
 
-    cfg = GPT2_SMALL
+    cfg = GPT2_SMALL.replace(num_layers=MAIN_LAYERS)
     assignments = {t: r.assignment for t, r in fam.items()}
     t0 = time.perf_counter()
     server = FamilyServer(cfg, params, db, assignments,
@@ -1673,7 +1738,7 @@ def run_train_path(torch, kernels, params, calib, db, fam):
     from repro_torch.models.pruned import forward_pruned
     from repro_torch.train import Trainer
 
-    cfg = GPT2_SMALL
+    cfg = GPT2_SMALL.replace(num_layers=MAIN_LAYERS)
     steps = TRAIN_KW["total_steps"]
     a = fam[TRAIN_TARGET].assignment
     student = apply_assignment(cfg, params, db, a)
@@ -1849,13 +1914,11 @@ FAMILY_STOP = 12
 # the family prices with the cost model, whose table is the same in every
 # build, so a resumed run searches its remaining targets against the
 # killed run's table (a measured table differs from build to build). The
-# rates are the H100 SXM data sheet's above and 80 GB of memory; the
-# 5e-6 s a module, a floor for an eager launch, is an assumption, not a
-# measurement. The speedups it gives are the model's, not measured ones
+# hardware is runtime.costmodel.H100_SXM: the H100 SXM data sheet's rates
+# above and 80 GB of memory; its 5e-6 s a module, a floor for an eager
+# launch, is an assumption, not a measurement. The speedups it gives are
+# the model's, not measured ones
 FAMILY_ENV = {"batch": 16, "seq": 128, "mode": "prefill"}
-FAMILY_HW = {"name": "h100-sxm-datasheet", "peak_flops": PEAK_BF16,
-             "hbm_bw": HBM_BYTES_PER_S, "ici_bw": 0.0, "hbm_bytes": 80e9,
-             "op_overhead": 5e-6}
 ARTIFACT_KINDS = ("hessians.npz", "db.npz", "params.npz", "ckpt",
                   "family.json")
 
@@ -1891,10 +1954,10 @@ def run_family_path(torch, kernels, params, calib):
     from repro_torch.models import forward
     from repro_torch.models.pruned import forward_pruned
     from repro_torch.optim.adamw import tree_leaves
-    from repro_torch.runtime.costmodel import HardwareSpec, InferenceEnv
+    from repro_torch.runtime.costmodel import H100_SXM, InferenceEnv
 
-    cfg = GPT2_SMALL
-    env = InferenceEnv(hw=HardwareSpec(**FAMILY_HW), **FAMILY_ENV)
+    cfg = GPT2_SMALL.replace(num_layers=MAIN_LAYERS)
+    env = InferenceEnv(hw=H100_SXM, **FAMILY_ENV)
     tcfg = TrainConfig(**FAMILY_TRAIN)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_family_")
     mods = {m.name: m for m in registry(cfg)}
@@ -1924,7 +1987,7 @@ def run_family_path(torch, kernels, params, calib):
     try:
         print(f"family: {cfg.name} targets {FAMILY_TARGETS}, {FAMILY_KW}, "
               f"{FAMILY_TRAIN}, batches {FAMILY_BATCH} x {FAMILY_SEQ}, "
-              f"cost-model env {FAMILY_ENV} on {FAMILY_HW}; disk free "
+              f"cost-model env {FAMILY_ENV} on {H100_SXM}; disk free "
               f"{shutil.disk_usage(tmp).free} B")
         kernels.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
@@ -2227,11 +2290,11 @@ def run_ssm_family_path(torch, kernels):
     from repro_torch.models import forward, model_init
     from repro_torch.models.pruned import forward_pruned
     from repro_torch.optim.adamw import tree_leaves
-    from repro_torch.runtime.costmodel import HardwareSpec, InferenceEnv
+    from repro_torch.runtime.costmodel import H100_SXM, InferenceEnv
 
     cfg = MAMBA2_2P7B.replace(num_layers=SSM_FAMILY_LAYERS)
     targets = SSM_FAMILY_TARGETS
-    env = InferenceEnv(hw=HardwareSpec(**FAMILY_HW), **FAMILY_ENV)
+    env = InferenceEnv(hw=H100_SXM, **FAMILY_ENV)
     tcfg = TrainConfig(**{**FAMILY_TRAIN,
                           "total_steps": SSM_FAMILY_KW["finetune_steps"]})
     t0 = time.perf_counter()
@@ -2265,7 +2328,7 @@ def run_ssm_family_path(torch, kernels):
               f"{cfg.dtype}; targets {targets}, {SSM_FAMILY_KW}, {tcfg}, "
               f"batches {FAMILY_BATCH} x {FAMILY_SEQ}, calibration 32 x 512 "
               f"in batches of 8, cost-model env {FAMILY_ENV} on "
-              f"{FAMILY_HW}; setup {setup_s:.3f} s; disk free "
+              f"{H100_SXM}; setup {setup_s:.3f} s; disk free "
               f"{shutil.disk_usage(tmp).free} B")
         print(f"SSM family: cost-model dense runtime {dense * 1e3:.6f} ms, "
               f"of which the logits head {table.base * 1e3:.6f} ms "
@@ -2400,7 +2463,8 @@ NO_DROPS = 8.0
 
 def run_moe_path(torch, kernels):
     """Phase 7: one-shot ZipLM on Phi-3.5-MoE in both MoE prune modes,
-    shrink, serve, generate."""
+    shrink, serve, generate. Returns the launch counts, and the dense
+    params and calibration batches for phase 11."""
     from repro_torch.configs import PHI35_MOE
     from repro_torch.core import database
     from repro_torch.core.hessian import collect_hessians
@@ -2466,7 +2530,7 @@ def run_moe_path(torch, kernels):
           "MoE generate differs from its prefill and decode steps")
     for name in MOE_KERNELS:
         check(launches[name] > 0, f"{name} never launched on the MoE path")
-    return launches
+    return launches, params, calib
 
 
 def run_moe_mode(torch, kernels, database, cfg, params, calib, env, hess):
@@ -2663,6 +2727,253 @@ def run_moe_mode(torch, kernels, database, cfg, params, calib, env, hess):
     torch.cuda.empty_cache()
 
 
+# phase 11: gradual ZipLM on phase 7's dense Phi-3.5-MoE (1 of 32 layers,
+# the same seeded weights and calibration batches) in expert mode: each
+# expert kept or dropped whole, KV groups with their query heads. Priced by
+# the cost model on H100_SXM (FAMILY_ENV) as phases 9 and 10 are; 4
+# finetune steps a target of FAMILY_BATCH x FAMILY_SEQ tokens with the
+# engine's gradual defaults, checkpoints every 4 (one per target), SPDY 16
+# candidates in populations of 8, and the export beside the next target.
+MOE_FAMILY_TARGETS = [1.3, 1.6]
+MOE_FAMILY_KW = {"finetune_steps": 4, "ckpt_every": 4, "search_steps": 16,
+                 "search_pop": 8}
+MOE_FAMILY_KERNELS = ("hessian_accum",)
+# a target writes about 27.6 GB (its Hessians 2.69 GB, its database 1.98
+# GB, its checkpoint of params, m and v 17.18 GB, its params 5.73 GB), and
+# the card's machine caps what one call writes to its disk at 45 GiB: the
+# run drops each target's checkpoints once its finetune has returned
+# (keep_checkpoints=False; a resume never reads them)
+# the repeated train steps of the determinism check
+MOE_REPEAT_STEPS = 2
+
+
+def state_digest(torch, state, chunk: int = 1 << 24):
+    """A digest of every bit of a train state's params, m and v: each
+    leaf's fp32 words as integers, summed with two streams of seeded
+    random 64-bit weights (wrapping), ``chunk`` words at a time. Two
+    states with any differing word give different digests except with
+    probability below 2^-33 (a linear hash over the integers mod 2^64),
+    and a digest is small, so one state need not stay on the card beside
+    the other."""
+    from repro_torch.optim.adamw import tree_leaves
+    out = []
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for tree in (state.params, state.opt["m"], state.opt["v"]):
+        for leaf in tree_leaves(tree):
+            words = leaf.detach().contiguous().view(torch.int32).reshape(-1)
+            acc = torch.zeros(2, dtype=torch.int64, device="cuda")
+            for i in range(0, words.numel(), chunk):
+                piece = words[i:i + chunk].to(torch.int64)
+                w = torch.randint(-2**62, 2**62, (2, piece.numel()),
+                                  generator=g, device="cuda")
+                acc += (w * piece).sum(-1)
+            out.append(acc)
+    return torch.stack(out).cpu()
+
+
+def run_moe_family_path(torch, kernels, params, calib):
+    """Phase 11: gradual_prune on full-width Phi-3.5-MoE at 1 layer in
+    expert mode, then two train steps repeated from one state."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.checkpoint.manager import load_json
+    from repro_torch.configs import PHI35_MOE
+    from repro_torch.core.latency import build_table
+    from repro_torch.core.pipeline import (family_run_dir, gradual_prune,
+                                           gradual_train_config,
+                                           masks_from_assignment)
+    from repro_torch.core.structures import registry
+    from repro_torch.data import synthetic_stream
+    from repro_torch.models import forward, moe
+    from repro_torch.models.pruned import forward_pruned
+    from repro_torch.runtime.costmodel import H100_SXM, InferenceEnv
+    from repro_torch.train import make_train_state, make_train_step
+
+    cfg = PHI35_MOE.replace(num_layers=MOE_LAYERS, moe_prune_unit="expert")
+    targets = MOE_FAMILY_TARGETS
+    env = InferenceEnv(hw=H100_SXM, **FAMILY_ENV)
+    tcfg = gradual_train_config(MOE_FAMILY_KW["finetune_steps"])
+    mods = registry(cfg)
+    by_name = {m.name: m for m in mods}
+    table = build_table(cfg, env, "costmodel", device="cuda")
+    dense = table.dense_runtime(mods)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_family_")
+
+    def data(step):
+        return synthetic_stream(cfg, FAMILY_BATCH, FAMILY_SEQ, seed=0,
+                                start_step=step)
+
+    try:
+        print(f"MoE family: {cfg.name} layers={cfg.num_layers} of "
+              f"{PHI35_MOE.num_layers} in {cfg.moe_prune_unit} mode "
+              f"({len(mods)} modules); phase 7's weights and its "
+              f"{len(calib)} calibration batches; targets {targets}, "
+              f"{MOE_FAMILY_KW}, {tcfg} (gradual_prune's default), "
+              f"batches {FAMILY_BATCH} x {FAMILY_SEQ}, cost-model env "
+              f"{FAMILY_ENV} on {H100_SXM}; disk free "
+              f"{shutil.disk_usage(tmp).free} B")
+        print(f"MoE family: cost-model dense runtime {dense * 1e3:.6f} ms, "
+              f"of which no unit can remove {table.base * 1e3:.6f} ms "
+              f"({table.base / dense:.4f}: embedding, norms and the logits "
+              f"head): a member is at most {dense / table.base:.4f}x faster")
+        run_dir = family_run_dir(cfg, targets, 0, tmp)
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fam = gradual_prune(cfg, params, env, targets, data, calib,
+                            tcfg=tcfg, ckpt_dir=tmp, seed=0, overlap=True,
+                            keep_checkpoints=False, device="cuda",
+                            **MOE_FAMILY_KW)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in kernels.KERNELS}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        man = load_json(os.path.join(run_dir, "family.json"))
+        print(f"MoE family: run {run_s:.3f} s, peak device memory "
+              f"{peak:.2f} GiB, launches {launches}; bytes by artifact "
+              "kind (the checkpoints removed) "
+              + json.dumps(_artifact_bytes(run_dir)))
+
+        tokens = calib[0]["tokens"].cuda()
+        old_cf = moe.CAPACITY_FACTOR
+        orders = {}
+        for t, v in zip(targets, fam):
+            e = man["targets"][f"{t:g}"]
+            with np.load(os.path.join(run_dir, f"t{t:g}", "db.npz")) as f:
+                orders[t] = {n: _order_db(by_name[n], f[f"{n}::order"])
+                             for n in v.assignment}
+            dropped = sorted(n for n, r in v.assignment.items()
+                             if ".expert" in n and r == cfg.d_ff)
+            print(f"  target {t}x: achieved {v.achieved:.4f}x (cost model), "
+                  f"KV groups removed {v.assignment['L0.attn']} of "
+                  f"{cfg.num_kv_heads}, experts dropped {len(dropped)} of "
+                  f"{cfg.num_experts} {dropped}, loss "
+                  f"{v.loss_before_ft:.5f} -> {v.loss_after_ft:.5f}, shrunk "
+                  f"params {v.pruned.num_params()}; stage seconds "
+                  + json.dumps({k: round(x, 4) for k, x in
+                                e["stage_times"].items()}))
+            check(v.achieved >= t, f"MoE family {t}x not met: "
+                  f"{v.achieved:.4f}x")
+            check(all(r in (0, cfg.d_ff) for n, r in v.assignment.items()
+                      if ".expert" in n),
+                  f"MoE family {t}x: an expert is neither kept nor dropped")
+            check(math.isfinite(v.loss_after_ft),
+                  f"MoE family {t}x: non-finite loss")
+            check(rows_zero(torch, v.params, orders[t], v.assignment),
+                  f"MoE family {t}x: a masked row is not 0 after the "
+                  "finetune")
+            with torch.no_grad():
+                moe.CAPACITY_FACTOR = NO_DROPS
+                try:
+                    want = forward(cfg, v.params, tokens)["logits"]
+                finally:
+                    moe.CAPACITY_FACTOR = old_cf
+                got = forward_pruned(v.pruned, tokens)
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            finite = bool(torch.isfinite(got).all())
+            layers = v.pruned.layers
+            print(f"  target {t}x: KV heads {[l.kv_groups for l in layers]}"
+                  f", expert widths {[l.expert_ff for l in layers]}"
+                  f"; masked rows 0; shrunk vs masked logits (capacity "
+                  f"factor {NO_DROPS} on the masked side) on "
+                  f"{tuple(tokens.shape)} tokens max_abs_err={err:.4e} "
+                  f"(scale {scale:.4e}, tol {STITCHED_TOL:g}*scale), finite "
+                  f"{finite}")
+            check(finite and err <= STITCHED_TOL * scale,
+                  f"MoE family {t}x: the shrunk member's logits disagree")
+            del want, got
+        for name in MOE_FAMILY_KERNELS:
+            check(launches[name] > 0, f"{name} never launched on phase 11")
+        check(launches["flash_attention"] == 0,
+              "flash_attention launched on phase 11, whose attention is "
+              "dense below 2048 tokens")
+
+        # determinism: the last member's finetune step (dense teacher, its
+        # masks) twice from one state, MOE_REPEAT_STEPS steps each
+        t, v = targets[-1], fam[-1]
+        student, assignment = v.params, v.assignment
+        del fam, v
+        torch.cuda.empty_cache()
+        step = make_train_step(
+            cfg, tcfg, teacher_params=params, device="cuda",
+            masks=masks_from_assignment(cfg, student, orders[t],
+                                        assignment))
+        batches = [b for b, _ in zip(data(0), range(MOE_REPEAT_STEPS))]
+        digests, times = [], []
+        for _ in range(2):
+            state = make_train_state(cfg, student, tcfg)
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, b)
+                check(math.isfinite(float(metrics["loss"])),
+                      "MoE train step: non-finite loss")
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            digests.append(state_digest(torch, state))
+            del state
+        same = torch.equal(digests[0], digests[1])
+        print(f"MoE family: {MOE_REPEAT_STEPS} train steps of the {t}x "
+              f"member (dense teacher, its masks, {FAMILY_BATCH} x "
+              f"{FAMILY_SEQ} tokens) repeated from one state: params, m "
+              f"and v bit-equal (digests of {digests[0].shape[0]} leaves) "
+              f"{same}; step seconds {[round(x, 4) for x in times]}")
+        check(same, "two MoE train steps from one state differ")
+        del student, step
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _order_db(mod, order):
+    """A ModuleDB holding only a module and its removal order: what
+    ``masks_from_assignment`` and ``rows_zero`` read."""
+    from repro_torch.core.database import ModuleDB
+    return ModuleDB(mod=mod, levels=None, snapshots=None, errors=None,
+                    priors=None, base_norm=0.0, order=order)
+
+
+# phase 12: two of the port's examples on the card, through their main()
+# with their defaults, as a user runs them (the other two examples' entry
+# points, FamilyServer/generate and gradual_prune, run on the card in
+# phases 5 and 9)
+EXAMPLE_RUNS = [("torch_quickstart", []),
+                ("torch_oneshot_prune_arch", ["--arch",
+                                              "phi3.5-moe-42b-a6.6b"])]
+
+
+def run_examples(torch, kernels):
+    """Phase 12: each of EXAMPLE_RUNS loaded from ``examples/`` and its
+    ``main`` called; every member it prices must meet its target."""
+    import importlib.util
+    for name, argv in EXAMPLE_RUNS:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = mod.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        res = out[0] if isinstance(out, tuple) else out
+        launches = {k.__name__: k.launches for k in kernels.KERNELS}
+        speedups = {t: round(float(v.speedup), 4)
+                    for t, v in res.variants.items()}
+        print(f"example {name} {' '.join(argv)}: {secs:.3f} s on the card "
+              f"(default --device), speedups {speedups}, launches "
+              f"{launches}")
+        for t, v in res.variants.items():
+            check(v.speedup >= t, f"example {name}: {t}x not met: "
+                  f"{v.speedup:.4f}x")
+        check(launches["hessian_accum"] > 0 and launches["obs_downdate"] > 0,
+              f"example {name}: the calibration and database kernels never "
+              "launched")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -2758,8 +3069,21 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    moe_launches = run_moe_path(torch, kernels)
+    moe_launches, moe_params, moe_calib = run_moe_path(torch, kernels)
     print(f"phase 7: MoE path done ({time.perf_counter() - t0:.2f} s)")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    moe_family_launches = run_moe_family_path(torch, kernels, moe_params,
+                                              moe_calib)
+    del moe_params, moe_calib
+    print(f"phase 11: MoE family engine run and repeated train steps "
+          f"({time.perf_counter() - t0:.2f} s)")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    run_examples(torch, kernels)
+    print(f"phase 12: examples done ({time.perf_counter() - t0:.2f} s)")
 
     for name, rec in records.items():
         rec["launches"] = launches[name]
@@ -2767,6 +3091,7 @@ def main() -> int:
         rec["train_launches"] = train_launches[name]
         rec["family_launches"] = family_launches[name]
         rec["ssm_family_launches"] = ssm_family_launches[name]
+        rec["moe_family_launches"] = moe_family_launches[name]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     # flash attention's and the SSD passes' device-only times ride beside
@@ -2774,11 +3099,12 @@ def main() -> int:
     # hessian_accum's and the SSD pass's other shapes
     # beside their main shape, and each kernel's launches on the MoE path
     # (phase 7), on the trainer's path (phase 8) and in the family engines'
-    # runs A (phases 9 and 10) beside those on its own path (phases 4-6;
-    # the SSD backward's own path is phase 10)
+    # runs A (phases 9 and 10) and the MoE family run (phase 11) beside
+    # those on its own path (phases 4-6; the SSD backward's own path is
+    # phase 10)
     extra = ["note", "device_ms", "library_device_ms", "passes_ms",
              "other_shapes", "moe_launches", "train_launches", "family_launches",
-             "ssm_family_launches"]
+             "ssm_family_launches", "moe_family_launches"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in records.values()]}))
     print(card_line())

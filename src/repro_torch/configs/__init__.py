@@ -30,6 +30,14 @@ ARCHS = {
     ]
 }
 
+# the reference's assigned architectures (its list verbatim); the ones in
+# NOT_PORTED stay refused by get_config
+ASSIGNED = [
+    "dbrx-132b", "phi3.5-moe-42b-a6.6b", "mamba2-2.7b",
+    "llama-3.2-vision-11b", "h2o-danube-1.8b", "qwen1.5-110b", "qwen2-72b",
+    "internlm2-20b", "whisper-large-v3", "hymba-1.5b",
+]
+
 # the reference's architectures whose paths (a hybrid attention + SSD
 # block, cross-attention over a frontend, an encoder/decoder) the port
 # does not run yet
@@ -76,7 +84,7 @@ def shapes_for(name: str):
             if s.name != "long_500k" or name in SUBQUADRATIC]
 
 
-__all__ = ["ARCHS", "BERT_BASE", "BERT_LARGE", "DBRX_132B", "DECODE_32K",
+__all__ = ["ARCHS", "ASSIGNED", "BERT_BASE", "BERT_LARGE", "DBRX_132B", "DECODE_32K",
            "GPT2_SMALL", "H2O_DANUBE_1P8B", "INTERNLM2_20B", "LM_SHAPES",
            "LONG_500K", "MAMBA2_2P7B", "ModelConfig", "NOT_PORTED",
            "PHI35_MOE", "PREFILL_32K", "QWEN15_110B", "QWEN2_72B",

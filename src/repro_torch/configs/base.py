@@ -104,6 +104,64 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    # ---- parameter counting (the reference's, for reports) ----
+    def param_counts(self) -> dict:
+        d, ff, v = self.d_model, self.d_ff, self.vocab_size
+        hq = self.num_heads * self.resolved_head_dim
+        hkv = self.num_kv_heads * self.resolved_head_dim
+        attn = d * hq + 2 * d * hkv + hq * d
+        if self.qkv_bias:
+            attn += hq + 2 * hkv
+        if self.ffn_activation == "swiglu":
+            ffn_dense = 3 * d * ff
+        else:
+            ffn_dense = 2 * d * ff + ff + d  # gelu MLP w/ biases
+        counts = {"embed": v * d}
+        n_experts = max(self.num_experts, 1)
+        per_layer = 0.0
+        active_per_layer = 0.0
+        if self.family == "ssm":
+            per_layer = self._ssm_params()
+            active_per_layer = per_layer
+        else:
+            per_layer += attn if self.attention != "none" else 0
+            if self.num_experts:
+                per_layer += n_experts * ffn_dense + d * n_experts  # router
+                active_per_layer += attn + self.num_experts_per_tok * ffn_dense
+            else:
+                per_layer += ffn_dense
+                active_per_layer = per_layer
+            if self.hybrid:
+                per_layer += self._ssm_params()
+                active_per_layer += self._ssm_params()
+        if self.cross_attn_every:
+            n_cross = self.num_layers // self.cross_attn_every
+            counts["cross_attn"] = n_cross * (2 * d * hq + 2 * d * hkv)
+        counts["layers"] = self.num_layers * per_layer
+        counts["layers_active"] = self.num_layers * active_per_layer
+        if self.encoder_decoder:
+            enc = self.num_encoder_layers * (attn + ffn_dense)
+            dec_cross = self.num_layers * (2 * d * hq + 2 * d * hkv)
+            counts["encoder"] = enc
+            counts["cross_attn"] = dec_cross
+        return counts
+
+    def num_params(self, active_only: bool = False) -> int:
+        c = self.param_counts()
+        layers = c["layers_active"] if active_only else c["layers"]
+        extra = sum(v for k, v in c.items()
+                    if k not in ("layers", "layers_active"))
+        return int(layers + extra)
+
+    def _ssm_params(self) -> int:
+        d, di, n = self.d_model, self.d_inner, self.ssm_state
+        h = self.ssm_heads
+        # in_proj -> [z, x, B, C, dt] ; conv on (x,B,C); out_proj
+        return (d * (2 * di + 2 * n + h)
+                + self.ssm_conv * (di + 2 * n)
+                + 2 * h  # A_log, D
+                + di * d)
+
 
 @dataclass(frozen=True)
 class ShapeConfig:

@@ -441,6 +441,15 @@ def _result_from(entry: Dict) -> SearchResult:
 DataSource = Union[Iterator[Dict], Callable[[int], Iterator[Dict]]]
 
 
+def gradual_train_config(finetune_steps: int) -> TrainConfig:
+    """The finetune's default TrainConfig (the reference's gradual
+    defaults): lr 8e-5, 5 warm-up steps, logit 1.0 and token 0.5
+    distillation."""
+    return TrainConfig(learning_rate=8e-5, warmup_steps=5,
+                       total_steps=finetune_steps, distill_logit=1.0,
+                       distill_token=0.5)
+
+
 def gradual_prune(cfg, params, env, targets: Sequence[float],
                   data: DataSource, calib_batches: List[Dict], *,
                   tcfg: Optional[TrainConfig] = None,
@@ -454,7 +463,8 @@ def gradual_prune(cfg, params, env, targets: Sequence[float],
                   seed: int = 0, resume: bool = True,
                   stop_after: Optional[tuple] = None,
                   report: Optional[RobustnessReport] = None,
-                  overlap: bool = True, verbose: bool = False,
+                  overlap: bool = True, keep_checkpoints: bool = True,
+                  verbose: bool = False,
                   device: DeviceLike = None) -> List[GradualVariant]:
     """Stage-checkpointed gradual family pruning on ``device`` (the card
     unless the caller asks for the CPU); the module docstring has the
@@ -476,6 +486,15 @@ def gradual_prune(cfg, params, env, targets: Sequence[float],
     otherwise); it is the ambient report for the whole run, and its dump
     lands in the manifest under ``"robustness"``, preempted runs
     included.
+
+    ``keep_checkpoints=False`` removes a target's trainer checkpoints
+    (``t<target>/ckpt/``) once its finetune has returned: a resume
+    restores a done target from its ``params.npz``, and a target whose
+    ``params.npz`` was lost finetunes again from step 0, to the same bits
+    with a step-indexed data source. At full width the checkpoints are
+    most of a target's bytes (17.2 GB of params, m and v against 10.4 GB
+    of other artifacts at one Phi-3.5-MoE layer). The results do not
+    depend on the flag, so it is not part of the resume header.
 
     ``overlap`` runs each finished target's export tail on a background
     thread beside the next target's stages; the results are the same
@@ -502,9 +521,7 @@ def gradual_prune(cfg, params, env, targets: Sequence[float],
             "gradual_prune(latency_kw={'cache_dir': ...}): the persistent "
             "latency cache (core/latency_cache.py) is not ported yet "
             "(ROADMAP Queue 1 item 4)")
-    tcfg = tcfg or TrainConfig(learning_rate=8e-5, warmup_steps=5,
-                               total_steps=finetune_steps,
-                               distill_logit=1.0, distill_token=0.5)
+    tcfg = tcfg or gradual_train_config(finetune_steps)
     if stop_after is not None:
         if stop_after[1] not in ("hessians", "db", "search", "finetune"):
             raise ValueError(f"stop_after stage {stop_after[1]!r} is not a "
@@ -544,7 +561,8 @@ def gradual_prune(cfg, params, env, targets: Sequence[float],
                 finetune_steps=finetune_steps, search_steps=search_steps,
                 search_pop=search_pop, latency_backend=latency_backend,
                 latency_kw=latency_kw, ckpt_every=ckpt_every, seed=seed,
-                stop_after=stop_after, overlap=overlap, verbose=verbose,
+                stop_after=stop_after, overlap=overlap,
+                keep_checkpoints=keep_checkpoints, verbose=verbose,
                 run_dir=run_dir, frs=frs, dev=dev)
     finally:
         # the run's robustness counts ride in the manifest even when the
@@ -556,8 +574,8 @@ def gradual_prune(cfg, params, env, targets: Sequence[float],
 def _family_engine(cfg, params, env, targets, data, calib_batches, *, tcfg,
                    finetune_steps, search_steps, search_pop,
                    latency_backend, latency_kw, ckpt_every, seed,
-                   stop_after, overlap, verbose, run_dir, frs,
-                   dev) -> List[GradualVariant]:
+                   stop_after, overlap, keep_checkpoints, verbose, run_dir,
+                   frs, dev) -> List[GradualVariant]:
     """The family loop proper, run under an installed report scope
     (``gradual_prune`` is the argument-checking, manifest-owning
     wrapper)."""
@@ -743,9 +761,12 @@ def _family_engine(cfg, params, env, targets, data, calib_batches, *, tcfg,
 
             # ---- stage: distillation finetune ----
             t0 = time.perf_counter()
-            masks = masks_from_assignment(cfg, masked, db, res.assignment)
+            # the step keeps only the masks' leaves with a zero; the full
+            # tree of ones is not held through the finetune
             trainer = Trainer(cfg, tcfg, ckpt_dir=os.path.join(tdir, "ckpt"),
-                              teacher_params=teacher, masks=masks,
+                              teacher_params=teacher,
+                              masks=masks_from_assignment(
+                                  cfg, masked, db, res.assignment),
                               ckpt_every=ckpt_every, device=dev)
             try:
                 state = trainer.init_or_restore(masked)
@@ -772,7 +793,9 @@ def _family_engine(cfg, params, env, targets, data, calib_batches, *, tcfg,
                     f"preempted mid-finetune of target {target} at step "
                     f"{int(state.step)} (run dir {run_dir})")
             current = state.params
-            del state, masked, masks, trainer
+            del state, masked, trainer
+            if not keep_checkpoints:
+                shutil.rmtree(os.path.join(tdir, "ckpt"))
             stage_t["finetune"] = time.perf_counter() - t0
 
             # ---- export tail: beside the next target's stages (it only

@@ -53,6 +53,12 @@ class PrunedModel:
             + _leaves(self.globals_)
         return int(sum(t.numel() for t in leaves))
 
+    def encoder_params(self) -> int:
+        """Transformer-stack params only (the paper reports 'encoder
+        size')."""
+        return int(sum(t.numel() for l in self.layers
+                       for t in _leaves(l.params)))
+
 
 def _vcfg(cfg, lcfg: PrunedLayer):
     """Per-layer view config: head counts shrunk to this layer's survivors.

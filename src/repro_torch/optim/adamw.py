@@ -66,10 +66,15 @@ def adamw_update(grads, state, params, *, lr, b1=0.9, b2=0.95, eps=1e-8,
     bc2 = 1 - b2 ** cf
 
     def upd_p(p, m_, v_):
-        step = (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
+        # (m_ / bc1) / (sqrt(v_ / bc2) + eps), plus the decay, times lr:
+        # the same operations in the same order, on two temporaries (the
+        # largest leaf of a full-width MoE layer is 1.6 GB)
+        den = torch.sqrt(v_ / bc2).add_(eps)
+        step = (m_ / bc1).div_(den)
+        del den
         if weight_decay:
-            step = step + weight_decay * p.float()
-        return (p.float() - lr * step).to(p.dtype)
+            step.add_(weight_decay * p.float())
+        return (p.float() - step.mul_(lr)).to(p.dtype)
 
     new_params = tree_map(upd_p, params, m, v)
     return new_params, {"m": m, "v": v, "count": count}

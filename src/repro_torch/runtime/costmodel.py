@@ -2,10 +2,10 @@
 
 Per-module time is ``max(FLOPs / peak, bytes / memory rate) +
 op_overhead``, with matrix dimensions rounded up to the (8, 128) tile of
-the hardware the reference priced (``matmul_time``). The port carries no
-hardware constants: every ``InferenceEnv`` names its ``HardwareSpec``
-explicitly, and an env without one (``hw=None``) can only be timed by
-the measured backend.
+the hardware the reference priced (``matmul_time``). Every ``InferenceEnv``
+names its ``HardwareSpec`` explicitly (there is no default), and an env
+without one (``hw=None``) can only be timed by the measured backend.
+``H100_SXM`` is the port's counterpart of the reference's ``TPU_V5E``.
 """
 from __future__ import annotations
 
@@ -23,6 +23,15 @@ class HardwareSpec:
     ici_bw: float           # bytes/s per link
     hbm_bytes: float
     op_overhead: float      # seconds per fused op (dispatch/latency floor)
+
+
+# the H100 SXM data sheet at 700 W: dense bf16 tensor-core peak, HBM3
+# rate, 80 GB; no interconnect on one card. The 5e-6 s a module, a floor
+# for an eager launch, is an assumption, not a measurement, and the
+# speedups it gives are the model's, not measured ones
+H100_SXM = HardwareSpec("h100-sxm-datasheet", peak_flops=989e12,
+                        hbm_bw=3.35e12, ici_bw=0.0, hbm_bytes=80e9,
+                        op_overhead=5e-6)
 
 
 @dataclass(frozen=True, kw_only=True)

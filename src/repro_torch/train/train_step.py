@@ -9,11 +9,12 @@ and never writes the one it was given, so the trainer's loss guard can
 drop an update and a queued checkpoint can never see a later step.
 
 Determinism: every step runs under ``torch.use_deterministic_algorithms``
-(restored on exit, so nothing outside the step changes mode). Two
-backward passes of the forward accumulate: the embedding lookup where
-tokens repeat (GPT-2 ties its table to the unembedding) and the ``gather``
-of the cross-entropy. The mode makes both deterministic on CUDA, so a
-resumed run gives the bits of an uninterrupted one. On CUDA it needs
+(restored on exit, so nothing outside the step changes mode). Backward
+passes of the forward accumulate: the embedding lookup where tokens
+repeat (GPT-2 ties its table to the unembedding), the ``gather`` of the
+cross-entropy, and an MoE layer's dispatch (``models.moe``). The mode
+makes them deterministic on CUDA, so a resumed run gives the bits of an
+uninterrupted one. On CUDA it needs
 ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (or ``:16:8``) in the environment
 before the process's first cuBLAS call; PyTorch raises at the step's
 first product otherwise. ``launch.train`` sets it.
@@ -88,6 +89,23 @@ def _split_microbatches(batch: Dict, n: int):
             for i in range(n)]
 
 
+def _mask_leaves(masks, dev):
+    """The leaves of a mask tree that change a weight, on ``dev`` by their
+    index in ``tree_leaves`` order; a {0,1} leaf as bool. Multiplying by 1
+    leaves a weight's bits as they are and a bool multiplies as its 0/1,
+    so applying these in place gives the bits of ``p * m`` over the whole
+    tree without a params-sized tree of ones on the device (5.3 GiB at
+    one full-width Phi-3.5-MoE layer)."""
+    out = []
+    for i, m in enumerate(tree_leaves(masks) if masks is not None else []):
+        m = m.to(dev)
+        if bool((m == 1).all()):
+            continue
+        out.append((i, m.bool() if bool(((m == 0) | (m == 1)).all())
+                    else m))
+    return out
+
+
 def make_train_step(cfg, tcfg: TrainConfig, *, teacher_params=None,
                     masks=None, device: DeviceLike = None):
     """Build the train step ``step(state, batch) -> (new_state,
@@ -103,7 +121,8 @@ def make_train_step(cfg, tcfg: TrainConfig, *, teacher_params=None,
     schedule = make_schedule(tcfg.learning_rate, tcfg.warmup_steps,
                              tcfg.total_steps)
     teacher = tree_to(teacher_params, dev)
-    masks = tree_to(masks, dev)
+    mask_leaves = _mask_leaves(masks, dev)
+    del masks
 
     def grads_of(params, mb):
         """(aux metrics, grads) of one microbatch."""
@@ -145,9 +164,9 @@ def make_train_step(cfg, tcfg: TrainConfig, *, teacher_params=None,
             new_params, new_opt = adamw_update(
                 grads, state.opt, params, lr=lr, b1=tcfg.beta1,
                 b2=tcfg.beta2, weight_decay=tcfg.weight_decay)
-            if masks is not None:
-                new_params = tree_map(lambda p, m: p * m.to(p.dtype),
-                                      new_params, masks)
+            leaves = tree_leaves(new_params)  # adamw_update's new tensors
+            for i, m in mask_leaves:
+                leaves[i].mul_(m)
         metrics = {**aux, "grad_norm": gnorm, "lr": lr}
         return TrainState(params=new_params, opt=new_opt,
                           step=state.step + 1, ef_err=state.ef_err), metrics

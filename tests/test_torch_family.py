@@ -254,6 +254,36 @@ def test_done_without_params_artifact_rolls_back_to_search(cfg, run,
     assert _executed(_manifest(cfg, tmp_path), 2) == []
 
 
+@pytest.mark.parametrize("lost_params", [False, True],
+                         ids=["killed-mid-finetune", "params-lost"])
+def test_dropped_checkpoints_keep_the_family_and_its_resume(
+        cfg, run, tmp_path, uninterrupted, lost_params):
+    """``keep_checkpoints=False`` removes each target's trainer
+    checkpoints once its finetune has returned, and the family keeps its
+    bits: killed mid-finetune (the in-flight target's checkpoints stay
+    until it returns) and resumed; or done, its params.npz lost, and
+    finetuned again from step 0 on the resume."""
+    run_dir = family_run_dir(cfg, TARGETS, 0, str(tmp_path))
+    if lost_params:
+        _same_family(uninterrupted[1], run(tmp_path,
+                                           keep_checkpoints=False))
+        os.remove(os.path.join(run_dir, "t2", "params.npz"))
+        expect = [("2", "finetune")]
+    else:
+        with pytest.raises(FamilyPreempted):
+            run(tmp_path, stop_after=(1, "finetune", 6),
+                keep_checkpoints=False)
+        assert not os.path.exists(os.path.join(run_dir, "t1.5", "ckpt"))
+        assert os.path.isdir(os.path.join(run_dir, "t2", "ckpt"))
+        expect = [("2", "finetune")]
+    _same_family(uninterrupted[1], run(tmp_path, keep_checkpoints=False))
+    man = _manifest(cfg, tmp_path)
+    assert _executed(man, man["runs"]) == expect
+    for t in ("t1.5", "t2"):
+        assert not os.path.exists(os.path.join(run_dir, t, "ckpt"))
+        assert os.path.exists(os.path.join(run_dir, t, "params.npz"))
+
+
 def test_run_dir_unique_per_family(cfg):
     dirs = {family_run_dir(cfg, [1.5, 2.0], 0),
             family_run_dir(cfg, [1.5, 2.0], 1),

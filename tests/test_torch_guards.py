@@ -1,6 +1,8 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX package,
-and its entry points run on the GPU unless the caller asks for the CPU."""
+and its entry points (the examples' ``main`` too) run on the GPU unless the
+caller asks for the CPU."""
 import ast
+import importlib.util
 import pathlib
 import tempfile
 
@@ -23,8 +25,10 @@ from repro_torch.runtime.costmodel import InferenceEnv
 from repro_torch.train import Trainer, make_train_step
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*torch*.py"))
+    + [ROOT / "chip_smoke.py"] \
+    + sorted((ROOT / "scripts").glob("*torch*.py")) + EXAMPLES
 
 
 def _imported_modules(path: pathlib.Path):
@@ -53,7 +57,15 @@ def test_port_files_are_found():
             "h2o_danube_1p8b.py", "profile_torch_oneshot.py", "adamw.py",
             "schedule.py", "losses.py", "train_step.py", "trainer.py",
             "manager.py", "pipeline.py", "train.py", "integrity.py",
-            "report.py"} <= names
+            "report.py", "torch_quickstart.py", "torch_serve_pruned.py",
+            "torch_gradual_pruning.py", "torch_oneshot_prune_arch.py"} <= names
+
+
+def _example_main(path: pathlib.Path):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main
 
 
 ENV = InferenceEnv(batch=2, seq=8, hw=None)
@@ -89,6 +101,8 @@ ENTRY_POINTS = {
     "launch.train": lambda: train_cli.main(["--arch", "gpt2-small"]),
     "gradual_prune": lambda: gradual_prune(TINY, {}, ENV, [2.0], iter(()),
                                            []),
+    **{f"examples/{p.name}": (lambda p=p: _example_main(p)([]))
+       for p in EXAMPLES},
 }
 
 
@@ -102,7 +116,8 @@ def test_entry_points_default_to_the_gpu(name):
 
 def test_train_entry_points_leave_no_checkpoint_behind_without_a_gpu(
         tmp_path, monkeypatch):
-    """The trainer and the CLI refuse before they make a directory."""
+    """The trainer, the CLI and the gradual example refuse before they
+    make a directory."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
@@ -110,6 +125,8 @@ def test_train_entry_points_leave_no_checkpoint_behind_without_a_gpu(
         Trainer(TINY, TrainConfig(), ckpt_dir=str(tmp_path / "ck"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_cli.main(["--arch", "gpt2-small", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _example_main(ROOT / "examples" / "torch_gradual_pruning.py")([])
     assert not any(tmp_path.iterdir())
 
 
