@@ -27,12 +27,19 @@ Phases (any failure exits non-zero and prints no result):
    obs_downdate over a layer's 16 experts (16, 6400, 4096, gs 1, also
    timed), flash
    attention with 32 query heads on 8 KV heads of 128 at the serving
-   buckets 128-512;
+   buckets 128-512; and phase 13's: the SSD pass and its backward at
+   Hymba-1.5B's (8, 2, 256, 25, 64, 16) (checked, bit for bit, timed),
+   flash at (1, 4096, 4096, 25, 5, 64) with a 1024-token window and at
+   the two query chunks the model launches for it (checked; timed beside
+   ``scaled_dot_product_attention`` with the boolean mask, and beside the
+   same shape causal without the window);
 3. check the slices on small models: the card's run (kernels) against the
    CPU run (plain versions) on the same weights and Hessians, a 2-layer
    model's prefill logits and served tokens, a 2-layer Mamba-2's
    logits, Hessians, database errors, greedy tokens and one train step's
-   loss and gradients (the SSD forward and backward kernels), and the
+   loss and gradients (the SSD forward and backward kernels), the same
+   for the reference's smoke Hymba (2 layers, attention and SSD heads
+   side by side), and the
    reference's smoke Phi-3.5-MoE (2 layers, 4 experts top-2) in both MoE
    prune modes: logits, Hessians, database errors, member losses and
    served tokens; and 5 steps of ``make_train_step`` on the small GPT-2
@@ -53,7 +60,7 @@ Phases (any failure exits non-zero and prints no result):
    1024) stood up by a ``FamilyServer`` from the stock config (the
    engines prefill through the flash-attention kernel whatever
    ``attn_impl`` says); shrink and stitched-model checks, then every
-   member serves one seeded stream (256 requests, 8 slots, prompts of
+   member serves one seeded stream (64 requests, 8 slots, prompts of
    128-768 tokens, 16-64 generated tokens, 50 req/s) and the routed
    stream runs through ``FamilyServer.run``, with the launch counts
    zeroed just before and read just after; engine tokens against
@@ -106,9 +113,9 @@ Phases (any failure exits non-zero and prints no result):
    dense model generates from 512-token prompts (prefill through the SSD
    kernel, then the recurrent decode);
 10. (run right after phase 6) gradual ZipLM on Mamba-2: ``gradual_prune``
-   on Mamba-2 2.7B at full width with 2 of its 64 layers and seeded
+   on Mamba-2 2.7B at full width with 1 of its 64 layers and seeded
    weights, targets 1.15x and 1.3x (the cost-model table's dense split is
-   printed first: at 2 layers the logits head is most of it), phase 9's
+   printed first: at 1 layer the logits head is most of it), phase 9's
    search, gradual defaults, cost-model table and batches, 8 finetune
    steps a target with checkpoints every 4, ``overlap=True``. Run A goes
    through, with the launch counts zeroed just before and read just after
@@ -162,6 +169,20 @@ Phases (any failure exits non-zero and prints no result):
    ``examples/torch_oneshot_prune_arch.py --arch phi3.5-moe-42b-a6.6b``;
    every member meets its target, and hessian_accum and obs_downdate
    launch.
+13. the hybrid slice: ``oneshot_prune`` on Hymba-1.5B at full width
+   (d_model 1600, 25 query heads on 5 KV heads of 64 with a 1024-token
+   window beside 25 SSD heads of 64, state 16, chunk 256, d_ff 5504,
+   vocab 32001 tied) with 4 of its 32 layers, seeded weights, phase 4's
+   calibration and search, a measured table (its ceiling printed first)
+   and targets 1.25x/1.5x/2x, with the launch counts zeroed just before
+   and read just after (hessian_accum, obs_downdate and the SSD kernel
+   must each have launched); the prior-scored family, each member shrunk
+   (``shrink`` == ``shrink_from_stitched``, removed rows 0) and run
+   against its stitched model; then one full-width hybrid layer's
+   forward at 4096 tokens, where ``attn_impl="auto"`` launches flash,
+   against dense attention (2e-2 of scale). Prints the stage seconds, the
+   peak, the snapshots' bytes and round trip and the launches (JSON
+   ``hybrid_launches``).
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 product on the
 card is a full fp32 product and the fp32 tolerances below hold. The train
@@ -194,7 +215,10 @@ HBM_BYTES_PER_S = 3.35e12
 # at 12 layers on an NVIDIA H100 80GB HBM3 at 700 W. Phase 6 stays at 8
 # Mamba-2 layers: at 4 its measured table's unprunable share (0.635 of
 # 1.25 ms) puts its 2x target out of reach. The serving and training CLIs
-# of phases 5 and 8 run the whole model
+# of phases 5 and 8 run the whole model. With phase 13 added the script
+# took 1209 s on a host that ran the older phases 16% slower than before,
+# so phase 5 serves 64 requests (not 128) and phase 10 runs 1 Mamba-2
+# layer (not 2)
 MAIN_LAYERS = 6
 # the main path's measured latency table: each module level the mean of
 # 50 calls after 5 untimed ones
@@ -522,10 +546,21 @@ FLASH_EDGE = [(2, 200, 130, 4, 2, 16, True, 0, None),
 # Phi-3.5-MoE's prefills in phase 7: GQA 32:8 at head dim 128, the
 # engine's buckets for prompts of 128-512 tokens
 FLASH_MOE = [(1, s, s, 32, 8, 128, True, 0, None) for s in (128, 256, 512)]
+# Hymba-1.5B's attention (phase 13): 25 query heads on 5 KV heads of 64,
+# a 1024-token window, 4096 tokens whole, then the two query chunks of
+# 2048 that models.attention.flash_attention_chunked launches for them
+# (the second against keys 1024-4095, its queries at offset 1024)
+FLASH_HYMBA = (1, 4096, 4096, 25, 5, 64, True, 1024, None)
+FLASH_HYMBA_CHUNKS = [(1, 2048, 2048, 25, 5, 64, True, 1024, 0),
+                      (1, 2048, 3072, 25, 5, 64, True, 1024, 1024)]
 # timed in bf16 causal beside scaled_dot_product_attention: buckets 128,
 # 256 and 512, the batched shape, and last the JSON line's shape
 FLASH_TIMED = [FLASH_SERVING[4], FLASH_SERVING[5], FLASH_SERVING[6],
                FLASH_BATCHED, FLASH_SERVING[7]]
+# timed apart, under the JSON line's ``other_shapes``: Hymba's windowed
+# shape, and the same shape causal without the window (do the key tiles
+# wholly outside the window cost nothing?)
+FLASH_TIMED_HYMBA = [FLASH_HYMBA, FLASH_HYMBA[:7] + (0, None)]
 
 
 def attended_pairs(sq, sk, causal, window, q_offset):
@@ -551,7 +586,8 @@ def check_flash(torch, kernels, g):
     dev = torch.device("cuda")
     cases = ([(c, torch.float32) for c in FLASH_CASES]
              + [(c, torch.bfloat16) for c in FLASH_CASES + FLASH_SERVING
-                + [FLASH_BATCHED, FLASH_GQA] + FLASH_EDGE + FLASH_MOE])
+                + [FLASH_BATCHED, FLASH_GQA] + FLASH_EDGE + FLASH_MOE
+                + [FLASH_HYMBA] + FLASH_HYMBA_CHUNKS])
     for case, dt in cases:
         b, sq, sk, hq, hkv, d, causal, window, q_off = case
         q, k, v = (torch.randn(shape, device=dev, generator=g).to(dt)
@@ -571,21 +607,36 @@ def check_flash(torch, kernels, g):
         check(ok, f"flash_attention disagrees at {case} {dt}")
         del got, want
     # the JSON line's shape is the last timed one, the longest serving
-    # prefill
+    # prefill; Hymba's windowed shape and its causal twin beside it
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "device_ms", "library_device_ms")
     row = time_flash(torch, kernels.flash_attention, flash_attention_plain,
                      g, FLASH_TIMED)[-1]
+    other = time_flash(torch, kernels.flash_attention, flash_attention_plain,
+                       g, FLASH_TIMED_HYMBA)
+    win, full = other
+    print(f"flash_attention {tuple(FLASH_HYMBA[:6])} bf16: the 1024-token "
+          f"window keeps {win['pairs'] / full['pairs']:.4f} of the causal "
+          f"pairs and takes {win['device_ms'] / full['device_ms']:.4f} of "
+          f"the causal device time")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:76",
-            **{key: row[key] for key in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "device_ms", "library_device_ms")}}
+            **{key: row[key] for key in keys},
+            "other_shapes": [{"shape": r["shape"], **{key: r[key]
+                                                      for key in keys}}
+                             for r in other]}
 
 
 def time_flash(torch, flash, plain, g, cases):
-    """Time ``flash`` in bf16 causal at each of ``cases`` beside ``plain``
-    (its plain version) and ``scaled_dot_product_attention``; returns one
-    row per case. Each case is first checked against ``plain`` at 2e-2.
+    """Time ``flash`` in bf16 at each of ``cases`` (their masks: causal,
+    the window and the queries' offset) beside ``plain`` (its plain
+    version) and ``scaled_dot_product_attention`` (``is_causal`` for a
+    square causal case without a window, else the case's boolean mask;
+    ``enable_gqa`` for grouped heads); returns one row per case, its
+    ``shape`` the case's (b, sq, sk, hq, hkv, d) and then its window
+    where it has one. Each case is first checked against ``plain`` at
+    2e-2.
     ``ms``, ``plain_ms`` and ``library_ms`` are ``time_ms`` (CUDA events
     around 20 eager calls, the host's launch path included: the yardstick
     of every kernel in the JSON line); ``device_ms`` and
@@ -598,31 +649,51 @@ def time_flash(torch, flash, plain, g, cases):
         q, k, v = (torch.randn(shape, device="cuda", generator=g).bfloat16()
                    for shape in ((b, sq, hq, d), (b, sk, hkv, d),
                                  (b, sk, hkv, d)))
-        got, want = flash(q, k, v, causal=True), plain(q, k, v, causal=True)
+        q_off = sk - sq if q_off is None else q_off
+        kw = {"causal": causal, "window": window, "q_offset": q_off}
+        got, want = flash(q, k, v, **kw), plain(q, k, v, **kw)
         err = float((got.float() - want.float()).abs().max())
         check(bool(torch.allclose(got.float(), want.float(), atol=2e-2,
                                   rtol=2e-2)),
               f"flash_attention disagrees at {(b, sq, sk, hq, hkv, d)}")
         del got, want
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        calls = {"": lambda: flash(q, k, v, causal=True),
-                 "library_": lambda: sdpa(qt, kt, vt, is_causal=True)}
-        row = {"shape": [b, sq, sk, hq, hkv, d], "max_abs_err": err}
+        lib = {"enable_gqa": True} if hq != hkv else {}
+        if causal and not window and sq == sk:
+            lib["is_causal"] = True
+        else:
+            qpos = q_off + torch.arange(sq, device="cuda")[:, None]
+            kpos = torch.arange(sk, device="cuda")[None, :]
+            keep = torch.ones((sq, sk), dtype=torch.bool, device="cuda")
+            if causal:
+                keep &= kpos <= qpos
+            if window:
+                keep &= kpos > qpos - window
+            lib["attn_mask"] = keep
+        calls = {"": lambda: flash(q, k, v, **kw),
+                 "library_": lambda: sdpa(qt, kt, vt, **lib)}
+        pairs = attended_pairs(sq, sk, causal, window, q_off)
+        row = {"shape": [b, sq, sk, hq, hkv, d] + ([window] if window
+                                                     else []),
+               "max_abs_err": err, "pairs": pairs}
         for pre, fn in calls.items():
             row[pre + "ms"] = time_ms(fn)
             row[pre + "device_ms"] = graph_ms(fn)
-        row["plain_ms"] = time_ms(lambda: plain(q, k, v, causal=True))
-        ops = 4.0 * b * hq * d * attended_pairs(sq, sk, causal, window,
-                                                sk - sq)
+        row["plain_ms"] = time_ms(lambda: plain(q, k, v, **kw))
+        ops = 4.0 * b * hq * d * pairs
         nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops, PEAK_BF16)
         row["device_tflops"] = ops / row["device_ms"] / 1e9
         rows.append(row)
-        print(f"flash_attention {(b, sq, sk, hq, hkv, d)} bf16 causal: "
+        masks = ("causal" if causal else "full") + (
+            f", window {window}" if window else "")
+        print(f"flash_attention {(b, sq, sk, hq, hkv, d)} bf16 {masks}: "
               f"kernel {row['ms']:.4f} ms eager, {row['device_ms']:.4f} ms "
               f"device (graph); scaled_dot_product_attention "
               f"{row['library_ms']:.4f} ms eager, "
-              f"{row['library_device_ms']:.4f} ms device; plain "
+              f"{row['library_device_ms']:.4f} ms device"
+              f"{'' if 'is_causal' in lib else ' (with the boolean mask)'}"
+              f"; plain "
               f"{row['plain_ms']:.4f} ms eager; bound {row['bound_ms']:.4f} "
               f"ms ({row['bound_by']}; {ops / 1e9:.3f} GFLOP over "
               f"{PEAK_BF16 / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.2f} MB over "
@@ -641,6 +712,12 @@ SSD_CASES = [(2, 64, 4, 32, 16, 32), (1, 96, 8, 16, 8, 32),
              (2, 50, 2, 64, 32, 16), (1, 128, 6, 32, 16, 64)]
 SSD_MAIN = (8, 512, 80, 64, 128, 128)
 SSD_WIDE = [(1, 512, 80, 64, 128, 256), (2, 300, 80, 64, 128, 128)]
+# Hymba-1.5B's SSD heads on its calibration batch (phase 13; a train step
+# on 8 x 512 tokens gives the backward the same shape): 25 heads of 64,
+# state 16, chunks of 256 (four query tiles of 64), so (b, nc, q) = (8, 2,
+# 256); timed apart from SSD_TIMED, under the JSON line's
+# ``other_shapes``
+SSD_HYMBA = (8, 512, 25, 64, 16, 256)
 # timed with bf16 B and C: the calibration batch, then half and a fifth of
 # its heads, as stand-ins for the search's pruned candidates
 SSD_TIMED = [SSD_MAIN, (8, 512, 40, 64, 128, 128), (8, 512, 16, 64, 128, 128)]
@@ -704,14 +781,15 @@ def check_ssd(torch, kernels, g):
     whole chunked scan against the recurrence, with and without an
     initial state; two calls bit for bit; the launch plan and
     ``time_ssd`` at SSD_TIMED (the calibration batch as the main path runs
-    it, bf16 B and C, then 40 and 16 heads). The JSON line's numbers are
-    the calibration batch's, the other head counts under ``other_shapes``."""
+    it, bf16 B and C, then 40 and 16 heads) and at Hymba's SSD_HYMBA. The
+    JSON line's numbers are the calibration batch's, the other shapes
+    under ``other_shapes``."""
     from repro_torch.kernels import ssd_intra_chunk_plain
     from repro_torch.kernels.ssd_scan import (intra_chunk_inputs, launch_plan,
                                               ssd_chunked, waves)
     cases = ([(c, "float32", "float32") for c in SSD_CASES]
              + [(c, "bfloat16", bc) for c in [SSD_MAIN] + SSD_WIDE
-                for bc in ("float32", "bfloat16")])
+                + [SSD_HYMBA] for bc in ("float32", "bfloat16")])
     for case, in_dt, bc in cases:
         x, dt, A, B, C = ssd_data(torch, case, getattr(torch, in_dt), g)
         xdt, dacs, Bb, Cb = intra_chunk_inputs(x, dt, A, B, C, case[-1])
@@ -758,8 +836,8 @@ def check_ssd(torch, kernels, g):
                   f" {'ok' if ok else 'MISMATCH'}")
             check(ok, f"ssd_chunked disagrees with the recurrence at {case}")
 
-    # two calls bit for bit: the calibration shape and a chunk of two tiles
-    for case in (SSD_MAIN, SSD_WIDE[0]):
+    # two calls bit for bit: the calibration shape and chunks of 256
+    for case in (SSD_MAIN, SSD_WIDE[0], SSD_HYMBA):
         x, dt, A, B, C = ssd_data(torch, case, torch.bfloat16, g)
         inputs = intra_chunk_inputs(x, dt, A, B, C, case[-1])
         same = all(torch.equal(a, b) for a, b in zip(
@@ -768,7 +846,7 @@ def check_ssd(torch, kernels, g):
               f"{'bit-identical' if same else 'DIFFER'}")
         check(same, f"ssd_intra_chunk is not deterministic at {case}")
         del x, dt, B, C, inputs
-    for b, s, h, p, n, chunk in SSD_TIMED:
+    for b, s, h, p, n, chunk in SSD_TIMED + [SSD_HYMBA]:
         plan = launch_plan(torch.empty((b, s // chunk, chunk, h, p),
                                        device="cuda"),
                            torch.empty(0, device="cuda", dtype=torch.bfloat16))
@@ -780,7 +858,7 @@ def check_ssd(torch, kernels, g):
               f"{plan.blocks_per_sm} block(s) an SM, "
               f"{waves(plan.blocks, slots)} wave(s) of {slots}")
     rows = time_ssd(torch, kernels.ssd_intra_chunk, ssd_intra_chunk_plain, g,
-                    SSD_TIMED)
+                    SSD_TIMED + [SSD_HYMBA])
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms")
     return {"name": "ssd_intra_chunk", "route": "cuda",
@@ -877,15 +955,16 @@ def check_ssd_backward(torch, kernels, g):
     """Phase 2, the SSD backward kernel against
     ``ssd_intra_chunk_backward_plain`` at the forward's check cases (the
     reference's in fp32; the calibration and training shape (8, 4, 128,
-    80, 64, 128) and the wide ones with B and C in fp32 and in bf16):
-    each gradient within SSD_TOL of its own scale; two calls bit for bit
-    at the training shape and at a chunk of 256; then
-    ``time_ssd_backward`` at the training shape with bf16 B and C, as a
-    train step of Mamba-2 2.7B gives them."""
+    80, 64, 128), the wide ones and Hymba's (8, 2, 256, 25, 64, 16) with B
+    and C in fp32 and in bf16): each gradient within SSD_TOL of its own
+    scale; two calls bit for bit at the training shape and at chunks of
+    256; then ``time_ssd_backward`` at the training shape with bf16 B and
+    C, as a train step of Mamba-2 2.7B gives them, and at Hymba's (under
+    ``other_shapes``)."""
     from repro_torch.kernels import ssd_intra_chunk_backward_plain
     cases = ([(c, "float32", "float32") for c in SSD_CASES]
              + [(c, "bfloat16", bc) for c in [SSD_MAIN] + SSD_WIDE
-                for bc in ("float32", "bfloat16")])
+                + [SSD_HYMBA] for bc in ("float32", "bfloat16")])
     for case, in_dt, bc in cases:
         args = ssd_backward_inputs(torch, case, in_dt, bc, g)
         got = kernels.ssd_intra_chunk_backward(*args)
@@ -898,7 +977,7 @@ def check_ssd_backward(torch, kernels, g):
               f"dxdt, ddacs, dB, dC) {'ok' if ok else 'MISMATCH'}")
         check(ok, f"ssd_intra_chunk_backward disagrees at {case} B/C {bc}")
         del args, got
-    for case in (SSD_MAIN, SSD_WIDE[0]):
+    for case in (SSD_MAIN, SSD_WIDE[0], SSD_HYMBA):
         args = ssd_backward_inputs(torch, case, "bfloat16", "bfloat16", g)
         same = all(torch.equal(a, b) for a, b in zip(
             kernels.ssd_intra_chunk_backward(*args),
@@ -908,6 +987,9 @@ def check_ssd_backward(torch, kernels, g):
         check(same, f"ssd_intra_chunk_backward is not deterministic at "
               f"{case}")
         del args
+    hymba = time_ssd_backward(torch, kernels.ssd_intra_chunk_backward,
+                              ssd_intra_chunk_backward_plain, g, SSD_HYMBA,
+                              profile=False)
     return {"name": "ssd_intra_chunk_backward", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:52",
@@ -915,12 +997,17 @@ def check_ssd_backward(torch, kernels, g):
                     "TPU: the reference differentiates "
                     "src/repro/models/ssm.py:93-152",
             **time_ssd_backward(torch, kernels.ssd_intra_chunk_backward,
-                                ssd_intra_chunk_backward_plain, g)}
+                                ssd_intra_chunk_backward_plain, g),
+            "other_shapes": [{key: hymba[key] for key in (
+                "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by")}]}
 
 
-def time_ssd_backward(torch, kernel, plain, g):
-    """Time ``kernel`` (the SSD backward) at SSD_MAIN, the train step's
-    shape, with bf16 B and C, beside ``plain`` (its plain version): each
+def time_ssd_backward(torch, kernel, plain, g, case=SSD_MAIN,
+                      profile: bool = True):
+    """Time ``kernel`` (the SSD backward) at ``case`` (SSD_MAIN, the
+    Mamba-2 train step's shape, unless given) with bf16 B and C, beside
+    ``plain`` (its plain version): each
     checked first under SSD_TOL["bfloat16"]; ``ms`` and ``plain_ms`` by
     ``time_ms``, ``device_ms`` by ``graph_ms``. No single PyTorch call
     computes the function. The bound counts G and (S o L)^T dy (Q(Q+1)/2
@@ -930,9 +1017,9 @@ def time_ssd_backward(torch, kernel, plain, g):
     operand types, against each input read and each output written once;
     the split products the kernel executes (3 TF32 products for G, (S o
     L)^T dy and the states' share of dB, 2 for W, dC and dS^T C with bf16
-    B and C, 1 bf16 for S) are printed beside it. ``passes_ms`` splits a
-    call's device time by pass."""
-    args = ssd_backward_inputs(torch, SSD_MAIN, "bfloat16", "bfloat16", g)
+    B and C, 1 bf16 for S) are printed beside it. With ``profile``,
+    ``passes_ms`` splits a call's device time by pass."""
+    args = ssd_backward_inputs(torch, case, "bfloat16", "bfloat16", g)
     xdt, dacs, Bb, Cb, dy, dst = args
     b, nc, q, h, p = xdt.shape
     n = Bb.shape[-1]
@@ -965,10 +1052,11 @@ def time_ssd_backward(torch, kernel, plain, g):
           f"peak); "
           f"{rec['bound_ms'] / rec['ms']:.3f} of the bound eager, "
           f"{rec['bound_ms'] / rec['device_ms']:.3f} on the device")
-    rec["passes_ms"] = passes_ms(torch, lambda: kernel(*args))
-    print("ssd_intra_chunk_backward device ms a call by pass (profiler, "
-          f"{PROFILED_CALLS} calls): " + ", ".join(
-              f"{k} {v:.4f}" for k, v in rec["passes_ms"].items()))
+    if profile:
+        rec["passes_ms"] = passes_ms(torch, lambda: kernel(*args))
+        print("ssd_intra_chunk_backward device ms a call by pass (profiler, "
+              f"{PROFILED_CALLS} calls): " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in rec["passes_ms"].items()))
     del args, xdt, dacs, Bb, Cb, dy, dst
     return rec
 
@@ -1199,21 +1287,41 @@ def check_small_ssm(torch, kernels):
     """Phase 3, Mamba-2: the reference's smoke shape (2 layers, d_model
     128, 8 SSD heads x 32, state 16, chunk 32, vocab 512) in fp32 on the
     card (the SSD kernel) and on the CPU (its plain version), on the same
-    weights: logits within 1e-4 of their scale, Hessians within 1e-4 of
-    theirs, database errors as for the small GPT-2, greedy tokens equal,
-    then a train step (``check_small_ssm_train``)."""
-    import numpy as np
+    weights (``check_small_scan_model``)."""
     from repro_torch.configs import MAMBA2_2P7B
+    cfg = MAMBA2_2P7B.replace(name="mamba2-smoke", num_layers=2, d_model=128,
+                              ssm_state=16, ssm_head_dim=32, ssm_chunk=32,
+                              vocab_size=512, dtype="float32")
+    check_small_scan_model(torch, kernels, cfg, 3, "Mamba-2")
+
+
+def check_small_hybrid(torch, kernels):
+    """Phase 3, Hymba: the reference's smoke shape
+    (``smoke_config("hymba-1.5b")``: 2 layers, d_model 128, 4 query heads
+    on 1 KV head of 32 with a 64-token window, 4 SSD heads x 32, state 16,
+    chunk 32, d_ff 256, vocab 512) in fp32 on the card and on the CPU, on
+    the same weights (``check_small_scan_model``)."""
+    from repro_torch.configs import smoke_config
+    check_small_scan_model(
+        torch, kernels, smoke_config("hymba-1.5b").replace(dtype="float32"),
+        5, "Hymba")
+
+
+def check_small_scan_model(torch, kernels, cfg, seed: int, what: str):
+    """A small model with SSD heads in fp32 on the card (the SSD kernel)
+    and on the CPU (its plain version), on the same weights: logits within
+    1e-4 of their scale, Hessians within 1e-4 of theirs, database errors
+    as for the small GPT-2, greedy tokens equal, then a train step
+    (``check_small_ssm_train``)."""
+    import numpy as np
     from repro_torch.core.database import build_database
     from repro_torch.core.hessian import collect_hessians
     from repro_torch.data import calibration_batches
     from repro_torch.models import forward, generate, model_init
     from repro_torch.models.transformer import tree_to
 
-    cfg = MAMBA2_2P7B.replace(name="mamba2-smoke", num_layers=2, d_model=128,
-                              ssm_state=16, ssm_head_dim=32, ssm_chunk=32,
-                              vocab_size=512, dtype="float32")
-    p_cpu = model_init(cfg, torch.Generator().manual_seed(3), device="cpu")
+    p_cpu = model_init(cfg, torch.Generator().manual_seed(seed),
+                       device="cpu")
     p_gpu = tree_to(p_cpu, "cuda")
     calib = calibration_batches(cfg, 16, 64, batch=8)
     tokens = calib[0]["tokens"]
@@ -1221,27 +1329,28 @@ def check_small_ssm(torch, kernels):
     lg_gpu = forward(cfg, p_gpu, tokens.cuda())["logits"].cpu()
     err, scale = float((lg_gpu - lg_cpu).abs().max()), float(
         lg_cpu.abs().max())
-    print(f"small Mamba-2: logits card vs CPU max_abs_err={err:.3e} (scale "
+    print(f"small {what}: logits card vs CPU max_abs_err={err:.3e} (scale "
           f"{scale:.3e}, tol 1e-4*scale)")
-    check(err <= 1e-4 * scale, "Mamba-2 logits disagree between card and CPU")
+    check(err <= 1e-4 * scale, f"{what} logits disagree between card and "
+          "CPU")
     h_cpu = collect_hessians(cfg, p_cpu, calib, device="cpu")
     h_gpu = collect_hessians(cfg, p_gpu, calib, device="cuda")
     herr = max(float((h_gpu[k].cpu() - h_cpu[k]).abs().max()) for k in h_cpu)
     hscale = max(float(h.abs().max()) for h in h_cpu.values())
-    print(f"small Mamba-2: Hessians card vs CPU max_abs_err={herr:.3e} "
-          f"(scale {hscale:.3e}, tol 1e-4*scale)")
+    print(f"small {what}: Hessians of {list(h_cpu)} card vs CPU "
+          f"max_abs_err={herr:.3e} (scale {hscale:.3e}, tol 1e-4*scale)")
     check(herr <= 1e-4 * hscale,
-          "Mamba-2 Hessians disagree between card and CPU")
+          f"{what} Hessians disagree between card and CPU")
     compare_databases(np, build_database(cfg, p_cpu, h_cpu, device="cpu"),
                       build_database(cfg, p_gpu, h_cpu, device="cuda"),
-                      "small Mamba-2")
+                      f"small {what}")
     prompt = tokens[:2, :40]
     t_cpu = generate(cfg, p_cpu, prompt, 12)
     t_gpu = generate(cfg, p_gpu, prompt.cuda(), 12).cpu()
-    print(f"small Mamba-2: greedy tokens of {tuple(prompt.shape)} prompts, "
+    print(f"small {what}: greedy tokens of {tuple(prompt.shape)} prompts, "
           f"12 steps, card == CPU: {torch.equal(t_gpu, t_cpu)}")
-    check(torch.equal(t_gpu, t_cpu), "Mamba-2 greedy tokens differ")
-    check_small_ssm_train(torch, kernels, cfg, p_cpu)
+    check(torch.equal(t_gpu, t_cpu), f"{what} greedy tokens differ")
+    check_small_ssm_train(torch, kernels, cfg, p_cpu, what)
 
 
 def ssm_step_grads(torch, cfg, params, teacher, batch):
@@ -1260,10 +1369,11 @@ def ssm_step_grads(torch, cfg, params, teacher, batch):
     return float(total.detach()), grads
 
 
-def check_small_ssm_train(torch, kernels, cfg, p_cpu):
-    """Phase 3, a Mamba-2 train step: the loss and every gradient of one
-    distillation step (8 x 64 tokens, two chunks of 32, a teacher of
-    another seed) on the card (the SSD forward and backward kernels) and
+def check_small_ssm_train(torch, kernels, cfg, p_cpu, what="Mamba-2"):
+    """Phase 3, a Mamba-2 (or Hymba) train step: the loss and every
+    gradient of one distillation step (8 x 64 tokens, two chunks of 32, a
+    teacher of another seed) on the card (the SSD forward and backward
+    kernels) and
     on the CPU (their plain versions): the loss within 1e-3 relative
     (ROADMAP's loss tolerance), each gradient within 1e-4 of its own
     scale (SSD_TOL for the model's fp32 B and C); the backward kernel
@@ -1283,15 +1393,15 @@ def check_small_ssm_train(torch, kernels, cfg, p_cpu):
     lerr = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
     worst = max(float((a.cpu() - b).abs().max()) / max(
         float(b.abs().max()), 1e-30) for a, b in zip(g_gpu, g_cpu))
-    print(f"small Mamba-2 train step: loss card {loss_gpu:.6f} CPU "
+    print(f"small {what} train step: loss card {loss_gpu:.6f} CPU "
           f"{loss_cpu:.6f} (relative error {lerr:.3e}, tol 1e-3); "
           f"{len(g_cpu)} gradients, worst error {worst:.3e} of the "
           f"gradient's scale (tol {SSD_TOL['float32']:g}); backward "
           f"kernel launches {launched}")
-    check(lerr <= 1e-3, "Mamba-2 train-step loss differs between card and "
+    check(lerr <= 1e-3, f"{what} train-step loss differs between card and "
           "CPU")
     check(worst <= SSD_TOL["float32"],
-          "Mamba-2 gradients differ between card and CPU")
+          f"{what} gradients differ between card and CPU")
     check(launched == cfg.num_layers,
           f"the SSD backward kernel launched {launched} times, not once a "
           "layer")
@@ -1502,11 +1612,12 @@ def check_table_spread(cfg, env, res, rebuilds: int = 2):
 
 
 # phase 5: GPT-2 small served with flash prefill; the stream's prompts
-# pad to the 128/256/512/1024 buckets. 128 requests arrive in about 2.6
+# pad to the 128/256/512/1024 buckets. 64 requests arrive in about 1.3
 # s, faster than 8 slots serve them: tokens/s is the saturated
 # throughput. The decode is host-bound, so the phase's time grows with
-# the requests: 256 took 160-220 s of the script's 1200 s limit
-SERVE = {"max_len": 1024, "slots": 8, "requests": 128}
+# the requests: 256 took 160-220 s of the script's 1200 s limit, 128 at 6
+# layers 60-68 s
+SERVE = {"max_len": 1024, "slots": 8, "requests": 64}
 STREAM = {"seed": 0, "rate": 50.0, "prompt_lens": (128, 256, 512, 768),
           "steps_range": (16, 64)}
 # shrunk vs stitched logits, bf16 through every layer in both (different
@@ -2221,16 +2332,17 @@ def run_ssm_path(torch, kernels):
 
 
 # phase 10: gradual ZipLM (core/pipeline.py gradual_prune) on Mamba-2 2.7B
-# at full width with 2 of its 64 layers and seeded weights: every train
+# at full width with 1 of its 64 layers and seeded weights: every train
 # step runs the SSD forward and backward kernels. A layer's database holds
 # 2.12 GB of snapshots on the card and each target writes them all to its
-# db.npz, so the depth is cut to 2. At 2 layers the unprunable logits head
-# is most of the dense operations, so targets 1.15x and 1.3x (the table's
+# db.npz, so the depth is cut to 1 (2 until the script outgrew its time).
+# At 1 layer the unprunable logits head is 0.7271 of the cost model's
+# dense runtime (a 1.3753x ceiling), so targets 1.15x and 1.3x (the table's
 # split is printed first). Phase 9's gradual defaults, search and
 # cost-model table; 8 finetune steps a target, checkpoints every 4. Run B
 # is killed at step 4 of target 1's finetune and resumed, and must equal
 # run A bit for bit
-SSM_FAMILY_LAYERS = 2
+SSM_FAMILY_LAYERS = 1
 SSM_FAMILY_TARGETS = [1.15, 1.3]
 SSM_FAMILY_KW = {"finetune_steps": 8, "ckpt_every": 4, "search_steps": 16,
                  "search_pop": 8}
@@ -2270,7 +2382,7 @@ def time_ssm_train_steps(torch, kernels, cfg, tcfg, student, teacher):
 
 
 def run_ssm_family_path(torch, kernels):
-    """Phase 10: gradual_prune on full-width Mamba-2 2.7B at 2 layers, run
+    """Phase 10: gradual_prune on full-width Mamba-2 2.7B at 1 layer, run
     through, killed mid-finetune and resumed bit for bit."""
     import shutil
     import tempfile
@@ -2974,6 +3086,193 @@ def run_examples(torch, kernels):
               "launched")
 
 
+# phase 13: Hymba-1.5B (configs/hymba_1p5b.py, arXiv:2411.13676) at full
+# width with 4 of its 32 layers and seeded weights: every layer runs 25
+# attention heads on 5 KV heads (a 1024-token window) and 25 SSD heads of
+# 64 (state 16, chunk 256) side by side, then its d_ff 5504 FFN. A layer's
+# database keeps about 0.92 GB of fp16 snapshots (FFN, SSD heads, KV
+# groups) and 141 MB of fp32 Hessians
+HYBRID_LAYERS = 4
+# with 4 layers the tied logits head (2048 x 1600 x 32001) is about a
+# quarter of the dense runtime; the measured table's ceiling (its dense
+# runtime over that head) is printed first, and a top target above 0.9 of
+# it is lowered to that
+HYBRID_TARGETS = [1.25, 1.5, 2.0]
+# one full-width hybrid layer's forward at HYBRID_LONG tokens, where "auto"
+# attention runs the flash kernel (past 2048 tokens), against dense
+# attention: the logits within 2e-2 of their scale
+HYBRID_LONG = 4096
+HYBRID_LONG_TOL = 2e-2
+HYBRID_KERNELS = ("hessian_accum", "obs_downdate", "ssd_intra_chunk")
+
+
+def run_hybrid_path(torch, kernels):
+    """Phase 13: oneshot_prune on Hymba-1.5B, shrink, and a long forward."""
+    import numpy as np
+    from repro_torch.configs import HYMBA_1P5B
+    from repro_torch.core import database
+    from repro_torch.core.database import apply_assignment
+    from repro_torch.core.latency import build_table
+    from repro_torch.core.oneshot import oneshot_prune
+    from repro_torch.core.shrink import shrink, shrink_from_stitched
+    from repro_torch.core.structures import registry
+    from repro_torch.data import calibration_batches
+    from repro_torch.models import forward, model_init
+    from repro_torch.models.pruned import forward_pruned
+    from repro_torch.runtime.costmodel import InferenceEnv
+
+    cfg = HYMBA_1P5B.replace(num_layers=HYBRID_LAYERS)
+    t0 = time.perf_counter()
+    params = model_init(cfg, torch.Generator().manual_seed(0), device="cuda")
+    calib = calibration_batches(cfg, 32, 512, batch=8)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    env = InferenceEnv(batch=16, seq=128, mode="prefill", hw=None)
+    probe = build_table(cfg, env, backend="measure", device="cuda",
+                        **LATENCY_KW)
+    ceiling = probe.dense_runtime(registry(cfg)) / probe.base
+    targets = list(HYBRID_TARGETS)
+    if targets[-1] > 0.9 * ceiling:
+        targets[-1] = round(0.9 * ceiling, 2)
+    print(f"Hymba path: {cfg.name} layers={cfg.num_layers} of "
+          f"{HYMBA_1P5B.num_layers} d_model={cfg.d_model} attention "
+          f"{cfg.num_heads}x{cfg.resolved_head_dim} on {cfg.num_kv_heads} KV "
+          f"heads window={cfg.window_size}, SSD {cfg.ssm_heads}x"
+          f"{cfg.ssm_head_dim} state={cfg.ssm_state} chunk={cfg.ssm_chunk}, "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} dtype={cfg.dtype}; "
+          f"calibration 32 x 512 tokens in batches of 8; env batch="
+          f"{env.batch} seq={env.seq} {env.mode}, measured table "
+          f"({LATENCY_KW}); a first table's dense runtime "
+          f"{probe.dense_runtime(registry(cfg)) * 1e3:.4f} ms over its "
+          f"logits head {probe.base * 1e3:.4f} ms: ceiling {ceiling:.4f}x; "
+          f"targets {targets}")
+
+    kernels.reset_launch_counts()
+    database.reset_snapshot_traffic()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = oneshot_prune(cfg, params, calib, env, targets,
+                        latency_backend="measure", latency_kw=LATENCY_KW,
+                        search_steps=48, search_pop=16, seed=0,
+                        device="cuda")
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    traffic = dict(database.SNAPSHOT_TRAFFIC)
+    snap_bytes = sum(m.snapshots.nbytes for m in res.db.values())
+    levels = {m.mod.kind: len(m.levels) for m in res.db.values()}
+    print(f"Hymba path: setup (weights + tokens) {setup_s:.3f} s, "
+          f"oneshot_prune {total_s:.3f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"{len(res.db)} modules, levels {levels}, database snapshots "
+          f"{snap_bytes} bytes ({snap_bytes / cfg.num_layers / 1e9:.3f} GB a "
+          f"layer); host round trip: fetch {traffic['fetch_bytes']} bytes in "
+          f"{traffic['fetch_s']:.3f} s, upload {traffic['upload_bytes']} bytes"
+          f" in {traffic['upload_s']:.3f} s")
+    print("Hymba stage seconds: " + json.dumps(
+        {k: round(v, 4) for k, v in res.stage_seconds.items()}))
+    print(f"Hymba path launches: {launches}")
+    print(f"Hymba table: base {res.table.base * 1e3:.4f} ms, " + ", ".join(
+        f"{k} levels {res.table.grids[k].tolist()} ms "
+        f"{[round(float(x) * 1e3, 4) for x in res.table.times[k]]}"
+        for k in res.table.grids))
+    print(f"Hymba dense: table runtime {res.dense_runtime * 1e3:.4f} ms "
+          f"(logits head {res.table.base * 1e3:.4f} ms, so at most "
+          f"{res.dense_runtime / res.table.base:.2f}x), calibration loss "
+          f"{res.dense_loss:.4f}")
+    check(math.isfinite(res.dense_loss), "Hymba: non-finite dense loss")
+    for t in targets:
+        v = res.variants[t]
+        kinds = {k: sum(r for n, r in v.assignment.items()
+                        if n.endswith("." + k)) for k in levels}
+        print(f"  target {t}x: speedup {v.speedup:.3f}x, runtime "
+              f"{v.runtime * 1e3:.4f} ms, loss {v.calib_loss:.4f}, removed "
+              f"{kinds} (KV groups, SSD heads, FFN rows), evals "
+              f"{v.search.n_evals}")
+        check(v.speedup >= t, f"Hymba target {t}x not met: {v.speedup:.4f}x")
+        check(math.isfinite(v.calib_loss), f"Hymba {t}x: non-finite loss")
+        for grp, leaf in (("attn", "wo"), ("ssm", "out_proj"), ("ffn", "wd")):
+            w = v.params["layers"][grp][leaf]
+            check(w.shape == params["layers"][grp][leaf].shape
+                  and bool(torch.isfinite(w).all()),
+                  f"Hymba {t}x: {leaf} has the wrong shape or non-finite "
+                  "values")
+    for name in HYBRID_KERNELS:
+        check(launches[name] > 0, f"{name} never launched on the Hymba path")
+    fam = check_prior_family(torch, cfg, params, calib, res, targets)
+
+    tokens = calib[0]["tokens"].cuda()
+    with torch.no_grad():
+        for t in targets:
+            a = fam[t].assignment
+            stitched = apply_assignment(cfg, params, res.db, a)
+            host_pm = shrink(cfg, params, res.db, a, device="cuda")
+            dev_pm = shrink_from_stitched(cfg, stitched, res.db, a)
+            hl, dl = (_leaves([l.params for l in pm.layers] + [pm.globals_])
+                      for pm in (host_pm, dev_pm))
+            shape = [(l.kv_groups, l.ssm_heads, l.d_ff)
+                     for l in host_pm.layers]
+            same = len(hl) == len(dl) and all(
+                x.dtype == y.dtype and torch.equal(x, y)
+                for x, y in zip(hl, dl)) and shape == [
+                (l.kv_groups, l.ssm_heads, l.d_ff) for l in dev_pm.layers]
+            zero = rows_zero(torch, stitched, res.db, a)
+            want = forward(cfg, stitched, tokens)["logits"]
+            got = forward_pruned(host_pm, tokens)
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            finite = bool(torch.isfinite(got).all())
+            print(f"  prior-scored {t}x shrunk: (KV groups, SSD heads, d_ff) "
+                  f"per layer {shape}, params {host_pm.num_params()}, "
+                  f"shrink_from_stitched == shrink ({len(hl)} leaves "
+                  f"bit-equal): {same}; masked rows 0: {zero}; logits vs "
+                  f"stitched on {tuple(tokens.shape)} tokens max_abs_err="
+                  f"{err:.4e} (scale {scale:.4e}, tol {STITCHED_TOL:g}*scale)"
+                  f", finite {finite}")
+            check(same, f"Hymba {t}x: shrink_from_stitched differs from "
+                  "shrink")
+            check(zero, f"Hymba {t}x: a removed structure's rows are not 0")
+            check(finite and err <= STITCHED_TOL * scale,
+                  f"Hymba {t}x: shrunk logits disagree with the stitched "
+                  "model")
+            del stitched, host_pm, dev_pm, want, got
+    del res, fam, calib, tokens
+    torch.cuda.empty_cache()
+
+    # one hybrid layer at HYBRID_LONG tokens: flash (auto) against dense
+    one = cfg.replace(num_layers=1)
+    p1 = {**params, "layers": {grp: {k: v[:1] for k, v in sub.items()}
+                               for grp, sub in params["layers"].items()}}
+    long = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, HYBRID_LONG))).cuda()
+    before = {k.__name__: k.launches for k in kernels.KERNELS}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = forward(one, p1, long)["logits"]
+        torch.cuda.synchronize()
+        long_s = time.perf_counter() - t0
+        long_launches = {k.__name__: k.launches - before[k.__name__]
+                         for k in kernels.KERNELS}
+        want = forward(one.replace(attn_impl="dense"), p1, long)["logits"]
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    finite = bool(torch.isfinite(got).all())
+    print(f"Hymba long forward: 1 layer, {tuple(long.shape)} tokens, "
+          f"attn_impl=auto in {long_s:.3f} s (launches {long_launches}); "
+          f"logits vs attn_impl=dense max_abs_err={err:.4e} (scale "
+          f"{scale:.4e}, tol {HYBRID_LONG_TOL:g}*scale), finite {finite}")
+    check(finite and err <= HYBRID_LONG_TOL * scale,
+          "Hymba long forward: flash disagrees with dense attention")
+    check(long_launches["flash_attention"] > 0
+          and long_launches["ssd_intra_chunk"] > 0,
+          "Hymba long forward: flash or the SSD kernel never launched")
+    del got, want, params, p1
+    for name, n in long_launches.items():
+        launches[name] += n
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -3024,6 +3323,7 @@ def main() -> int:
     check_small_slice(torch)
     check_small_serving(torch)
     check_small_ssm(torch, kernels)
+    check_small_hybrid(torch, kernels)
     check_small_moe(torch)
     print(f"phase 3: small slices agree between card and CPU "
           f"({time.perf_counter() - t0:.2f} s)")
@@ -3084,6 +3384,11 @@ def main() -> int:
     t0 = time.perf_counter()
     run_examples(torch, kernels)
     print(f"phase 12: examples done ({time.perf_counter() - t0:.2f} s)")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    hybrid_launches = run_hybrid_path(torch, kernels)
+    print(f"phase 13: Hymba path done ({time.perf_counter() - t0:.2f} s)")
 
     for name, rec in records.items():
         rec["launches"] = launches[name]
@@ -3092,6 +3397,7 @@ def main() -> int:
         rec["family_launches"] = family_launches[name]
         rec["ssm_family_launches"] = ssm_family_launches[name]
         rec["moe_family_launches"] = moe_family_launches[name]
+        rec["hybrid_launches"] = hybrid_launches[name]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     # flash attention's and the SSD passes' device-only times ride beside
@@ -3099,12 +3405,13 @@ def main() -> int:
     # hessian_accum's and the SSD pass's other shapes
     # beside their main shape, and each kernel's launches on the MoE path
     # (phase 7), on the trainer's path (phase 8) and in the family engines'
-    # runs A (phases 9 and 10) and the MoE family run (phase 11) beside
-    # those on its own path (phases 4-6; the SSD backward's own path is
-    # phase 10)
+    # runs A (phases 9 and 10), the MoE family run (phase 11) and the Hymba
+    # path (phase 13) beside those on its own path (phases 4-6; the SSD
+    # backward's own path is phase 10)
     extra = ["note", "device_ms", "library_device_ms", "passes_ms",
-             "other_shapes", "moe_launches", "train_launches", "family_launches",
-             "ssm_family_launches", "moe_family_launches"]
+             "other_shapes", "moe_launches", "train_launches",
+             "family_launches", "ssm_family_launches", "moe_family_launches",
+             "hybrid_launches"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in records.values()]}))
     print(card_line())

@@ -17,6 +17,7 @@ from .bert import BERT_BASE, BERT_LARGE
 from .dbrx_132b import CONFIG as DBRX_132B
 from .gpt2 import GPT2_SMALL
 from .h2o_danube_1p8b import CONFIG as H2O_DANUBE_1P8B
+from .hymba_1p5b import CONFIG as HYMBA_1P5B
 from .internlm2_20b import CONFIG as INTERNLM2_20B
 from .mamba2_2p7b import MAMBA2_2P7B
 from .phi35_moe_42b import CONFIG as PHI35_MOE
@@ -26,7 +27,8 @@ from .qwen2_72b import CONFIG as QWEN2_72B
 ARCHS = {
     c.name: c for c in [
         DBRX_132B, PHI35_MOE, MAMBA2_2P7B, H2O_DANUBE_1P8B, QWEN15_110B,
-        QWEN2_72B, INTERNLM2_20B, BERT_BASE, BERT_LARGE, GPT2_SMALL,
+        QWEN2_72B, INTERNLM2_20B, HYMBA_1P5B, BERT_BASE, BERT_LARGE,
+        GPT2_SMALL,
     ]
 }
 
@@ -38,10 +40,9 @@ ASSIGNED = [
     "internlm2-20b", "whisper-large-v3", "hymba-1.5b",
 ]
 
-# the reference's architectures whose paths (a hybrid attention + SSD
-# block, cross-attention over a frontend, an encoder/decoder) the port
-# does not run yet
-NOT_PORTED = ("hymba-1.5b", "llama-3.2-vision-11b", "whisper-large-v3")
+# the reference's architectures whose paths (cross-attention over a
+# frontend, an encoder/decoder) the port does not run yet
+NOT_PORTED = ("llama-3.2-vision-11b", "whisper-large-v3")
 
 # archs with sub-quadratic attention for which long_500k is runnable
 SUBQUADRATIC = {"mamba2-2.7b", "hymba-1.5b", "h2o-danube-1.8b"}
@@ -84,9 +85,9 @@ def shapes_for(name: str):
             if s.name != "long_500k" or name in SUBQUADRATIC]
 
 
-__all__ = ["ARCHS", "ASSIGNED", "BERT_BASE", "BERT_LARGE", "DBRX_132B", "DECODE_32K",
-           "GPT2_SMALL", "H2O_DANUBE_1P8B", "INTERNLM2_20B", "LM_SHAPES",
-           "LONG_500K", "MAMBA2_2P7B", "ModelConfig", "NOT_PORTED",
-           "PHI35_MOE", "PREFILL_32K", "QWEN15_110B", "QWEN2_72B",
-           "SUBQUADRATIC", "ShapeConfig", "TRAIN_4K", "get_config",
-           "shapes_for", "smoke_config"]
+__all__ = ["ARCHS", "ASSIGNED", "BERT_BASE", "BERT_LARGE", "DBRX_132B",
+           "DECODE_32K", "GPT2_SMALL", "H2O_DANUBE_1P8B", "HYMBA_1P5B",
+           "INTERNLM2_20B", "LM_SHAPES", "LONG_500K", "MAMBA2_2P7B",
+           "ModelConfig", "NOT_PORTED", "PHI35_MOE", "PREFILL_32K",
+           "QWEN15_110B", "QWEN2_72B", "SUBQUADRATIC", "ShapeConfig",
+           "TRAIN_4K", "get_config", "shapes_for", "smoke_config"]

@@ -6,8 +6,10 @@ apply. This module runs per-layer parameter dicts in a Python loop over
 the same primitive ops: this is where the structural speedup shows up
 (smaller matmuls, skipped modules). It runs the attention, FFN, MoE and
 SSD branches (an SSD layer through ``models.ssm.ssm_apply`` at its pruned
-width, an MoE layer through ``_moe_forward``). The decode runtime covers
-attention + FFN/MoE decoders, as the reference's does.
+width, an MoE layer through ``_moe_forward``), and a hybrid layer's
+attention and SSD heads side by side, averaged as the reference averages
+them. The decode runtime covers attention + FFN/MoE decoders, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -116,21 +118,28 @@ def _head(pm: "PrunedModel", x):
 
 def forward_pruned(pm: PrunedModel, tokens) -> torch.Tensor:
     """Forward over heterogeneous pruned layers -> fp32 logits (B,S,V).
-    Raises for a family the port does not run (a hybrid layer's branches
-    would need the reference's averaging)."""
+    Both mixers of a layer read one normed input. In a hybrid layer the
+    residual takes ``0.5 * (attn + ssm)`` with both branches live and
+    ``0.5 * live`` with one dropped, as the dense block averages them (the
+    reference's ``forward_pruned``); raises for a family the port does
+    not run."""
     cfg = pm.cfg
     check_supported(cfg)
     tokens = tokens.to(pm.globals_["embed"]["table"].device)
     x = embed_tokens(cfg, pm.globals_["embed"], tokens)
     for lcfg in pm.layers:
+        lp = lcfg.params
+        mixed = []
         if _has_attn(lcfg):
-            h = apply_norm(cfg, lcfg.params["ln1"], x)
-            a, _ = attn_mod.self_attention(_vcfg(cfg, lcfg),
-                                           lcfg.params["attn"], h)
-            x = x + a
-        if lcfg.ssm_heads > 0 and "ssm" in lcfg.params:
-            h = apply_norm(cfg, lcfg.params["ln1"], x)
-            x = x + ssm_apply(cfg, lcfg.params["ssm"], h)
+            h = apply_norm(cfg, lp["ln1"], x)
+            mixed.append(attn_mod.self_attention(_vcfg(cfg, lcfg),
+                                                 lp["attn"], h)[0])
+        if lcfg.ssm_heads > 0 and "ssm" in lp:
+            h = apply_norm(cfg, lp["ln1"], x)
+            mixed.append(ssm_apply(cfg, lp["ssm"], h))
+        if mixed:
+            y = mixed[0] if len(mixed) == 1 else mixed[0] + mixed[1]
+            x = x + (0.5 * y if cfg.hybrid else y)
         x = _ffn_block(cfg, lcfg, x)
     return _head(pm, x)
 

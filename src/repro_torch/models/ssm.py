@@ -10,7 +10,8 @@ plain version on the CPU.
 
 ``ssm_apply`` reads the head count and inner width from the weights it
 is given, so it also runs a layer whose SSD heads were shrunk away by
-ZipLM (``models.pruned``).
+ZipLM (``models.pruned``). The same three functions run the SSD heads of
+a hybrid (Hymba) block beside its attention (``models.transformer``).
 """
 from __future__ import annotations
 

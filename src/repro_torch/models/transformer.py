@@ -1,12 +1,14 @@
 """Transformer stack: init, full-sequence forward (train / prefill) and
 single-token decode for dense self-attention models (GPT-2/BERT/llama-style
 blocks), mixture-of-experts models (the FFN of every block a
-``models.moe`` layer) and Mamba-2 (SSD) stacks.
+``models.moe`` layer), Mamba-2 (SSD) stacks and Hymba-style hybrid
+stacks (attention and SSD heads side by side on the block's normed
+input, their outputs averaged, then the FFN).
 
 Per-layer weights are stacked along a leading layer axis, as in the JAX
 package; the forward and decode are Python loops over layers where the
-reference scans. Hybrid, cross-attention and frontends are not ported
-yet and are rejected up front.
+reference scans. Cross-attention, encoder/decoder stacks and frontends
+are not ported yet and are rejected up front.
 """
 from __future__ import annotations
 
@@ -27,9 +29,12 @@ def check_supported(cfg) -> None:
     ssm = cfg.family == "ssm"
     unsupported = {
         "num_experts in the ssm family": cfg.num_experts and ssm,
-        "ssm_state outside the ssm family": cfg.ssm_state and not ssm,
+        "hybrid in the ssm family": cfg.hybrid and ssm,
+        "ssm_state outside the ssm family and hybrid blocks":
+            cfg.ssm_state and not (ssm or cfg.hybrid),
         "family='ssm' without ssm_state": ssm and not cfg.ssm_state,
-        "hybrid": cfg.hybrid, "encoder_decoder": cfg.encoder_decoder,
+        "hybrid without ssm_state": cfg.hybrid and not cfg.ssm_state,
+        "encoder_decoder": cfg.encoder_decoder,
         "cross_attn_every": cfg.cross_attn_every,
         "attention='none'": cfg.attention == "none" and not ssm,
         "frontend": cfg.frontend != "none",
@@ -37,12 +42,15 @@ def check_supported(cfg) -> None:
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense and MoE self-attention and "
-            f"Mamba-2 stacks only (not ported yet: {', '.join(bad)})")
+            f"{cfg.name}: the port runs dense and MoE self-attention, "
+            f"Mamba-2 and hybrid attention + SSD stacks only (not ported "
+            f"yet: {', '.join(bad)})")
 
 
 def block_kind(cfg) -> str:
-    return "ssm" if cfg.family == "ssm" else "self"
+    if cfg.family == "ssm":
+        return "ssm"
+    return "hybrid" if cfg.hybrid else "self"
 
 
 def model_init(cfg, generator: Optional[torch.Generator] = None,
@@ -54,8 +62,9 @@ def model_init(cfg, generator: Optional[torch.Generator] = None,
     dev = resolve_device(device)
     g = generator if generator is not None else torch.Generator().manual_seed(0)
     L = cfg.num_layers
+    kind = block_kind(cfg)
     embed = embedding_init(cfg, g)
-    if block_kind(cfg) == "ssm":
+    if kind == "ssm":
         layers = {"ln1": norm_init(cfg, L),
                   "ssm": ssm_mod.ssm_init(cfg, g, L)}
     else:
@@ -66,6 +75,8 @@ def model_init(cfg, generator: Optional[torch.Generator] = None,
             layers["moe"] = moe_mod.moe_init(cfg, g, L)
         else:
             layers["ffn"] = ffn_mod.ffn_init(cfg, g, L)
+        if kind == "hybrid":  # drawn last, as the reference's _block_init
+            layers["ssm"] = ssm_mod.ssm_init(cfg, g, L)
     params: Dict[str, Any] = {
         "embed": embed,
         "layers": layers,
@@ -103,31 +114,46 @@ def _ffn_or_moe(cfg, lp, h2, capture=None):
     return ffn_mod.ffn_apply(cfg, lp["ffn"], h2, capture=capture), None
 
 
+def _ssm_branch(cfg, lp, h, *, build_cache: bool, caps):
+    """The SSD heads on a block's normed input: (y, its decode cache or
+    None). Writes ``ssm_out_in`` into ``caps`` (the layer's captures,
+    where the reference files it) unless ``caps`` is None."""
+    y = ssm_mod.ssm_apply(cfg, lp["ssm"], h, capture=caps,
+                          return_cache=build_cache)
+    return y if build_cache else (y, None)
+
+
 def _self_block(cfg, lp, x, *, build_cache: bool, capture: bool):
-    """One standard block. Returns (x, aux, cache_kv, captures)."""
+    """One standard block, or a hybrid one: attention and the SSD heads on
+    the same normed input, ``0.5 * (attn + ssm)`` into the residual (the
+    reference's ``_self_block``). Returns (x, aux, cache_kv, cache_ssm,
+    captures)."""
+    caps: Dict[str, Any] = {}
     cap_attn = {} if capture else None
     h = apply_norm(cfg, lp["ln1"], x)
     a, kv = attn_mod.self_attention(cfg, lp["attn"], h, capture=cap_attn)
     cache_kv = (kv["k"], kv["v"]) if build_cache else None
+    cache_ssm = None
+    if "ssm" in lp:
+        m, cache_ssm = _ssm_branch(cfg, lp, h, build_cache=build_cache,
+                                   caps=caps if capture else None)
+        a = 0.5 * (a + m)
     x = x + a
     h2 = apply_norm(cfg, lp["ln2"], x)
     cap_ffn = {} if capture else None
     f, aux = _ffn_or_moe(cfg, lp, h2, capture=cap_ffn)
-    return x + f, aux, cache_kv, {"attn": cap_attn, "ffn": cap_ffn}
+    caps.update(attn=cap_attn, ffn=cap_ffn)
+    return x + f, aux, cache_kv, cache_ssm, caps
 
 
 def _ssm_block(cfg, lp, x, *, build_cache: bool, capture: bool):
-    """One Mamba-2 block. Returns (x, aux, cache_ssm, captures); the
+    """One Mamba-2 block. Returns (x, aux, None, cache_ssm, captures); the
     capture ``ssm_out_in`` sits at the layer level, as in the reference."""
     caps: Dict[str, Any] = {}
     h = apply_norm(cfg, lp["ln1"], x)
-    y = ssm_mod.ssm_apply(cfg, lp["ssm"], h,
-                          capture=caps if capture else None,
-                          return_cache=build_cache)
-    cache = None
-    if build_cache:
-        y, cache = y
-    return x + y, None, cache, caps
+    y, cache = _ssm_branch(cfg, lp, h, build_cache=build_cache,
+                           caps=caps if capture else None)
+    return x + y, None, None, cache, caps
 
 
 def _stack(trees):
@@ -145,16 +171,18 @@ def forward(cfg, params, tokens: torch.Tensor, *, mode: str = "train",
     mode: "train" (logits over all positions) or "prefill" (also returns
     the decode cache: for attention stacks ``cache = {k, v}`` of shape
     (L, B, S, HKV, D), ring-rolled for sliding windows; for SSM stacks
-    ``cache_ssm = {state, conv_x, conv_bc}`` stacked over layers).
+    ``cache_ssm = {state, conv_x, conv_bc}`` stacked over layers; a
+    hybrid stack returns both).
     Returns dict(logits (B,S,V) fp32, aux (the mean over layers of the
     MoE load-balancing loss; 0 without experts), the cache, and with
     ``capture`` the per-layer module inputs stacked with a leading layer
     axis: ``captures[group][key]`` for attention stacks (an MoE layer's
     ``captures["ffn"]["wd_in"]`` is (L, E, C, f), with
     ``captures["ffn"]["wd_valid"]`` (L, E, C)), ``captures["ssm_out_in"]``
-    for SSM stacks). With ``collect_hiddens``, ``hiddens`` is each layer's
-    output stacked to (L, B, S, d), as the reference's ``_scan_stack``
-    collects them (token distillation reads them).
+    for SSM stacks, both for hybrid stacks). With ``collect_hiddens``,
+    ``hiddens`` is each layer's output stacked to (L, B, S, d), as the
+    reference's ``_scan_stack`` collects them (token distillation reads
+    them).
     """
     check_supported(cfg)
     build_cache = mode == "prefill"
@@ -162,12 +190,14 @@ def forward(cfg, params, tokens: torch.Tensor, *, mode: str = "train",
     tokens = tokens.to(dev)
     x = embed_tokens(cfg, params["embed"], tokens)
     block = _ssm_block if block_kind(cfg) == "ssm" else _self_block
-    caps, caches, auxes, hiddens = [], [], [], []
+    caps, kv_caches, ssm_caches, auxes, hiddens = [], [], [], [], []
     for i in range(cfg.num_layers):
-        x, aux, c_layer, c = block(cfg, _layer(params["layers"], i), x,
-                                   build_cache=build_cache, capture=capture)
+        x, aux, c_kv, c_ssm, c = block(cfg, _layer(params["layers"], i), x,
+                                       build_cache=build_cache,
+                                       capture=capture)
         caps.append(c)
-        caches.append(c_layer)
+        kv_caches.append(c_kv)
+        ssm_caches.append(c_ssm)
         if aux is not None:
             auxes.append(aux)
         if collect_hiddens:
@@ -180,11 +210,11 @@ def forward(cfg, params, tokens: torch.Tensor, *, mode: str = "train",
         out["hiddens"] = torch.stack(hiddens)
     if capture:
         out["captures"] = _stack(caps)
-    if build_cache and block_kind(cfg) == "ssm":
-        out["cache_ssm"] = _stack(caches)
-    elif build_cache:
-        out["cache"] = _ring_cache(cfg, torch.stack([c[0] for c in caches]),
-                                   torch.stack([c[1] for c in caches]))
+    if build_cache and kv_caches[0] is not None:
+        out["cache"] = _ring_cache(cfg, torch.stack([c[0] for c in kv_caches]),
+                                   torch.stack([c[1] for c in kv_caches]))
+    if build_cache and ssm_caches[0] is not None:
+        out["cache_ssm"] = _stack(ssm_caches)
     return out
 
 
@@ -218,17 +248,20 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=None, *, kv_heads=None,
     ``per_slot=True`` gives a per-slot position vector ``pos: (B,)``
     (continuous batching) instead of the scalar lockstep position. An SSM
     stack's cache is ``ssm = {state, conv_x, conv_bc}`` stacked over
-    layers instead of k/v buffers.
+    layers instead of k/v buffers; a hybrid stack's holds both.
     """
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or compute_dtype(cfg)
+    kind = block_kind(cfg)
     cache: Dict[str, Any] = {"pos": torch.zeros((batch,) if per_slot else (),
                                                 dtype=torch.long, device=dev)}
-    if block_kind(cfg) == "ssm":
+    if kind in ("ssm", "hybrid"):
         cache["ssm"] = ssm_mod.init_ssm_cache(cfg, batch, cfg.num_layers,
                                               dtype, dev)
-    elif kv_heads is not None:
+    if kind == "ssm":
+        return cache
+    if kv_heads is not None:
         if len(kv_heads) != cfg.num_layers:
             raise ValueError(f"kv_heads has {len(kv_heads)} entries for "
                              f"{cfg.num_layers} layers")
@@ -262,18 +295,21 @@ def decode_step(cfg, params, cache, tokens):
     dev = params["embed"]["table"].device
     x = embed_tokens(cfg, params["embed"], tokens.to(dev),
                      positions=positions)
-    ssm = block_kind(cfg) == "ssm"
+    kind = block_kind(cfg)
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
         h = apply_norm(cfg, lp["ln1"], x)
-        if ssm:
-            y, _ = ssm_mod.ssm_decode_step(
+        if kind != "self":  # the layer's views of the stacked SSM cache
+            m, _ = ssm_mod.ssm_decode_step(
                 cfg, lp["ssm"], h, {k: v[i] for k, v in cache["ssm"].items()})
-            x = x + y
+        if kind == "ssm":
+            x = x + m
             continue
         layer_cache = {"k": cache["attn"]["k"][i], "v": cache["attn"]["v"][i]}
         a, _ = attn_mod.self_attention(cfg, lp["attn"], h, cache=layer_cache,
                                        cache_pos=pos)
+        if kind == "hybrid":
+            a = 0.5 * (a + m)
         x = x + a
         h2 = apply_norm(cfg, lp["ln2"], x)
         x = x + _ffn_or_moe(cfg, lp, h2)[0]

@@ -89,13 +89,37 @@ def _split_microbatches(batch: Dict, n: int):
             for i in range(n)]
 
 
+def _key_paths(tree, prefix=()):
+    """The key paths of a tree's leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _key_paths(tree[k], prefix + (k,))]
+    return [prefix]
+
+
+def _check_mask_tree(mask_paths, params) -> None:
+    """Raise unless the mask tree had exactly the params' key paths: the
+    step pairs mask and weight by their index in ``tree_leaves`` order,
+    so a missing or extra key would mask the wrong leaf (the reference's
+    ``jax.tree.map`` over params and masks raises a ValueError too)."""
+    want = _key_paths(params)
+    if mask_paths != want:
+        missing = sorted(set(want) - set(mask_paths))
+        extra = sorted(set(mask_paths) - set(want))
+        raise ValueError(
+            "the masks tree does not have the params' structure: "
+            f"missing {['/'.join(p) for p in missing]}, extra "
+            f"{['/'.join(p) for p in extra]}")
+
+
 def _mask_leaves(masks, dev):
     """The leaves of a mask tree that change a weight, on ``dev`` by their
     index in ``tree_leaves`` order; a {0,1} leaf as bool. Multiplying by 1
     leaves a weight's bits as they are and a bool multiplies as its 0/1,
     so applying these in place gives the bits of ``p * m`` over the whole
     tree without a params-sized tree of ones on the device (5.3 GiB at
-    one full-width Phi-3.5-MoE layer)."""
+    one full-width Phi-3.5-MoE layer). The index is only right for a mask
+    tree with the params' key paths (``_check_mask_tree``)."""
     out = []
     for i, m in enumerate(tree_leaves(masks) if masks is not None else []):
         m = m.to(dev)
@@ -113,7 +137,8 @@ def make_train_step(cfg, tcfg: TrainConfig, *, teacher_params=None,
     CPU). masks: optional params-shaped {0,1} tree multiplied into the
     params after each update (gradual pruning keeps pruned structures at
     zero). The teacher and the masks are moved to the device once; the
-    state's params must already live there. Metrics are 0-d tensors:
+    state's params must already live there; a step raises a ValueError
+    if the masks' key paths are not the params'. Metrics are 0-d tensors:
     ``loss``, ``task_loss``, ``logit_kl``, ``token_l2`` (each the mean over
     microbatches), ``grad_norm`` and ``lr``."""
     dev = resolve_device(device)
@@ -122,6 +147,7 @@ def make_train_step(cfg, tcfg: TrainConfig, *, teacher_params=None,
                              tcfg.total_steps)
     teacher = tree_to(teacher_params, dev)
     mask_leaves = _mask_leaves(masks, dev)
+    mask_paths = _key_paths(masks) if masks is not None else None
     del masks
 
     def grads_of(params, mb):
@@ -157,6 +183,8 @@ def make_train_step(cfg, tcfg: TrainConfig, *, teacher_params=None,
         if where.type != dev.type or dev.index not in (None, where.index):
             raise ValueError(f"the train step runs on {dev}, but the "
                              f"state's params are on {where}")
+        if mask_paths is not None:
+            _check_mask_tree(mask_paths, params)
         with deterministic_algorithms():
             aux, grads = accum_grads(params, batch)
             grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)

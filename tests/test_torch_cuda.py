@@ -642,6 +642,101 @@ def test_mamba2_train_step_gradients_on_the_card_match_the_cpu(cuda_device):
         assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())
 
 
+# Hymba-1.5B's shapes: attention (25 query heads on 5 KV heads of 64, a
+# 1024-token window) at 4096 tokens whole and as the two query chunks of
+# 2048 that the model launches; its SSD heads (25 of 64, state 16, chunk
+# 256) on the 8 x 512-token calibration batch, (b, nc, q) = (8, 2, 256)
+HYMBA_FLASH = [(1, 4096, 4096, 25, 5, 64, True, 1024, None),
+               (1, 2048, 2048, 25, 5, 64, True, 1024, 0),
+               (1, 2048, 3072, 25, 5, 64, True, 1024, 1024)]
+HYMBA_SSD = (8, 2, 256, 25, 64, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HYMBA_FLASH)
+def test_flash_attention_kernel_at_hymbas_shapes(cuda_device, case):
+    """bf16, as the model runs it, at the reference's 2e-2."""
+    b, sq, sk, hq, hkv, d, causal, window, q_offset = case
+    g = torch.Generator(device=cuda_device).manual_seed(sq + sk)
+    q, k, v = (torch.randn(shape, device=cuda_device,
+                           generator=g).bfloat16()
+               for shape in ((b, sq, hq, d), (b, sk, hkv, d),
+                             (b, sk, hkv, d)))
+    kw = {"causal": causal, "window": window, "q_offset": q_offset}
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(got.float(),
+                               flash_attention_plain(q, k, v, **kw).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernels_at_hymbas_shape(cuda_device, dtype):
+    """The forward and backward SSD kernels at Hymba's shape against their
+    plain versions (1e-4 with fp32 B and C, 2e-2 of each output's scale
+    with bf16), each the same bits on a second call."""
+    xdt, dacs, B, C = _intra_chunk_inputs(*HYMBA_SSD, cuda_device, 7)
+    B, C = B.to(dtype), C.to(dtype)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    got = ssd_intra_chunk(xdt, dacs, B, C)
+    for a, w in zip(got, ssd_intra_chunk_plain(xdt, dacs, B, C)):
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, w, atol=tol, rtol=tol)
+        else:
+            assert float((a - w).abs().max()) <= tol * float(w.abs().max())
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, ssd_intra_chunk(xdt, dacs, B, C)))
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    dy = torch.randn(xdt.shape, device=cuda_device, generator=g)
+    dst = torch.randn(got[1].shape, device=cuda_device, generator=g)
+    grads = ssd_intra_chunk_backward(xdt, dacs, B, C, dy, dst)
+    _backward_close(grads, ssd_intra_chunk_backward_plain(
+        xdt, dacs, B, C, dy, dst), tol)
+    assert all(torch.equal(a, b) for a, b in zip(
+        grads, ssd_intra_chunk_backward(xdt, dacs, B, C, dy, dst)))
+
+
+@pytest.mark.cuda
+def test_hybrid_model_on_the_card_matches_the_cpu(cuda_device):
+    """The smoke Hymba in fp32 on the card (flash is not reached at 64
+    tokens; the SSD forward and backward kernels are) against the CPU:
+    logits within 1e-4 of their scale, greedy tokens equal, a
+    distillation step's loss 1e-3 relative and each gradient within 1e-4
+    of its own scale."""
+    from repro_torch.distill.losses import distillation_loss
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train.train_step import deterministic_algorithms
+    cfg = smoke_config("hymba-1.5b").replace(dtype="float32")
+    student = model_init(cfg, torch.Generator().manual_seed(5), device="cpu")
+    teacher = model_init(cfg, torch.Generator().manual_seed(4), device="cpu")
+    batch = make_batch_np(cfg, 8, 64, seed=5)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = tree_to(student, dev)
+        tokens = batch["tokens"].to(dev)
+        logits = forward(cfg, p, tokens)["logits"].cpu()
+        toks = generate(cfg, p, tokens[:2, :40], 12).cpu()
+        live = tree_map(lambda t: t.detach().clone().requires_grad_(True), p)
+        with deterministic_algorithms():
+            total, _ = distillation_loss(
+                cfg, live, tree_to(teacher, dev),
+                {k: v.to(dev) for k, v in batch.items()}, l_logit=1.0,
+                l_token=0.5)
+            grads = torch.autograd.grad(total, tree_leaves(live))
+        out[str(dev)] = (logits, toks, float(total.detach()),
+                         [g.cpu() for g in grads])
+    cpu, gpu = out["cpu"], out[str(cuda_device)]
+    assert float((gpu[0] - cpu[0]).abs().max()) <= 1e-4 * float(
+        cpu[0].abs().max())
+    assert torch.equal(gpu[1], cpu[1])
+    assert gpu[2] == pytest.approx(cpu[2], rel=1e-3)
+    for a, w in zip(gpu[3], cpu[3]):
+        assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
 TRAIN_CFG = GPT2_SMALL.replace(
     name="gpt2-tiny", num_layers=2, d_model=96, d_ff=384, num_heads=6,
     num_kv_heads=6, head_dim=16, vocab_size=384, dtype="float32")

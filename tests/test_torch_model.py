@@ -107,9 +107,13 @@ def test_model_init_is_seeded_and_shaped():
 
 
 def test_unported_families_are_rejected():
-    """MoE is ported (tests/test_torch_moe.py); the hybrid block and
-    cross-attention are not."""
-    for kw, what in (({"hybrid": True, "ssm_state": 16}, "hybrid"),
-                     ({"cross_attn_every": 2}, "cross_attn_every")):
-        with pytest.raises(NotImplementedError, match=what):
-            model_init(port_cfg(REF_TINY).replace(**kw), device="cpu")
+    """MoE and the hybrid block are ported (tests/test_torch_moe.py,
+    tests/test_torch_hybrid.py): a hybrid model initialises with its SSD
+    leaves beside the attention's. Cross-attention is not ported."""
+    hybrid = model_init(port_cfg(REF_TINY).replace(hybrid=True,
+                                                   ssm_state=16),
+                        device="cpu")
+    assert {"attn", "ffn", "ssm"} <= set(hybrid["layers"])
+    with pytest.raises(NotImplementedError, match="cross_attn_every"):
+        model_init(port_cfg(REF_TINY).replace(cross_attn_every=2),
+                   device="cpu")

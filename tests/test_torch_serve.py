@@ -51,7 +51,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import decode_step, forward, generate, init_cache
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.pruned import (decode_step_pruned, forward_pruned,
-                                       kv_cache_bytes, prefill_pruned)
+                                       init_cache_pruned, kv_cache_bytes,
+                                       prefill_pruned)
 from repro_torch.runtime.costmodel import HardwareSpec, InferenceEnv
 from repro_torch.serve import (DENSE_TARGET, DenseServeModel, FamilyServer,
                                PrunedServeModel, Request, ServeEngine,
@@ -262,14 +263,19 @@ def test_head_pruned_model_runs_when_the_head_dim_is_derived(ref_params):
 
 
 def test_pruned_runtime_rejects_unported_layers(tiny):
-    """Pruned MoE layers run now (tests/test_torch_moe.py); a hybrid
-    attention + SSD layer, whose branches the reference averages, does
-    not."""
+    """Pruned MoE and hybrid layers run in ``forward_pruned`` now
+    (tests/test_torch_moe.py, tests/test_torch_hybrid.py); the pruned
+    *decode* runtime still refuses a hybrid model, as the reference's
+    ``_check_decodable`` does."""
     cfg, params, db = tiny
     pm = shrink(cfg, params, db, _assignment("half_heads"), device="cpu")
     pm.cfg = cfg.replace(hybrid=True, ssm_state=16)
+    assert forward_pruned(pm, torch.zeros((1, 4), dtype=torch.long)).shape \
+        == (1, 4, cfg.vocab_size)
     with pytest.raises(NotImplementedError, match="hybrid"):
-        forward_pruned(pm, torch.zeros((1, 4), dtype=torch.long))
+        init_cache_pruned(pm, 1, 16)
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        prefill_pruned(pm, torch.zeros((1, 4), dtype=torch.long), 16)
 
 
 # ----------------------------------------------------------------------

@@ -318,9 +318,14 @@ def test_generate_greedy_tokens_match_reference(ref, params):
 
 
 def test_unsupported_families_still_raise():
+    """A hybrid flag in the ssm family still raises (a hybrid block is an
+    attention block with SSD heads beside it, tests/test_torch_hybrid.py);
+    so do the other combinations the port does not run."""
     check_supported(CFG)
     check_supported(MAMBA2_2P7B)
-    for kw in ({"hybrid": True}, {"num_experts": 4},
+    with pytest.raises(NotImplementedError, match="hybrid in the ssm family"):
+        check_supported(CFG.replace(hybrid=True))
+    for kw in ({"num_experts": 4},
                {"encoder_decoder": True}, {"frontend": "vision_stub"},
                {"family": "dense"}, {"ssm_state": 0}):
         with pytest.raises(NotImplementedError):

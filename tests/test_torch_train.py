@@ -481,6 +481,43 @@ def test_trainer_logs_distill_metrics(member, tmp_path):
         assert {"grad_norm", "lr", "step_time"} <= set(m)
 
 
+def _masks_with(masks, change):
+    """A copy of a mask tree with one leaf removed or one leaf added."""
+    out = tree_map(lambda m: m, masks)
+    if change == "missing":
+        del out["layers"]["attn"]["wo"]
+    else:
+        out["layers"]["attn"]["extra"] = torch.ones(1)
+    return out
+
+
+@pytest.mark.parametrize("change", ["missing", "extra"])
+def test_a_mask_tree_without_the_params_keys_raises(member, tmp_path,
+                                                    change):
+    """A mask tree whose key paths are not the params' raises, as the
+    reference's ``jax.tree.map(..., new_params, masks)`` does, in the
+    train step and through the trainer; the step pairs mask and weight
+    by their position in ``tree_leaves``, so without the check a missing
+    leaf would mask the wrong weight and leave another unmasked."""
+    masks = _masks_with(member["masks"], change)
+    tcfg = TrainConfig(total_steps=2, **DISTILL)
+    step = make_train_step(CFG, tcfg, masks=masks, device="cpu")
+    state = make_train_state(CFG, member["student0"], tcfg)
+    batch = next(synthetic_stream(CFG, 8, 32, seed=5))
+    with pytest.raises(ValueError, match="attn/(wo|extra)"):
+        step(state, batch)
+    tr = Trainer(CFG, tcfg, ckpt_dir=str(tmp_path), device="cpu",
+                 masks=masks, ckpt_every=100)
+    with pytest.raises(ValueError, match="params' structure"):
+        tr.fit(tr.init_or_restore(member["student0"]),
+               synthetic_stream(CFG, 8, 32, seed=5), steps=2)
+    tr.ckpt.close()
+    # the same tree with the params' keys trains
+    state, _ = make_train_step(CFG, tcfg, masks=member["masks"],
+                               device="cpu")(state, batch)
+    assert int(state.step) == 1
+
+
 def test_trainer_resume_after_preemption(tmp_path):
     """The kill point is a fixed step count (stop_after), and fit()'s
     final wait() joins the async queue, so the step-10 checkpoint is on
