@@ -32,14 +32,20 @@ Phases (any failure exits non-zero and prints no result):
    flash at (1, 4096, 4096, 25, 5, 64) with a 1024-token window and at
    the two query chunks the model launches for it (checked; timed beside
    ``scaled_dot_product_attention`` with the boolean mask, and beside the
-   same shape causal without the window);
+   same shape causal without the window); and phase 14's: hessian_accum
+   over bf16 X at Whisper's D = 1280 and 5120 (N = 4096, with an
+   accumulator; timed beside ``torch.addmm`` with ``out_dtype``) and
+   obs_downdate over its decoder's (4, 5120, 1280) FFN stack (checked,
+   timed);
 3. check the slices on small models: the card's run (kernels) against the
    CPU run (plain versions) on the same weights and Hessians, a 2-layer
    model's prefill logits and served tokens, a 2-layer Mamba-2's
    logits, Hessians, database errors, greedy tokens and one train step's
    loss and gradients (the SSD forward and backward kernels), the same
    for the reference's smoke Hymba (2 layers, attention and SSD heads
-   side by side), and the
+   side by side), the reference's smoke Whisper (2 encoder and 2
+   decoder layers, its cross-attention gates opened: logits, Hessians,
+   database orders, greedy tokens through the cross cache), and the
    reference's smoke Phi-3.5-MoE (2 layers, 4 experts top-2) in both MoE
    prune modes: logits, Hessians, database errors, member losses and
    served tokens; and 5 steps of ``make_train_step`` on the small GPT-2
@@ -49,9 +55,15 @@ Phases (any failure exits non-zero and prints no result):
    12 layers, d_model 768, 12 heads, d_ff 3072, vocab 50257; phases 5, 8
    and 9 run the same model) with seeded weights,
    numpy calibration batches, a latency table measured on the card and
-   targets 1.5x/2x/3x. The kernels' launch counts are zeroed just before
-   and read just after; each kernel must have launched. Then the family
-   is searched again on the same database and table by the analytic
+   targets 1.5x/1.53x/1.56x (the 2x and 3x the phase ran before lie above
+   the table's 1.7465x ceiling, its dense runtime over the logits head;
+   the ceiling is printed and held to 0.95 of that, ``check_ceiling``, as
+   in phases 13 and 14). The
+   table times each module by one replay of a CUDA graph of its 50
+   calls, the card's time and not its launches. The kernels' launch counts are
+   zeroed just before and read just after; each kernel must have
+   launched. Then the family is searched again on the same database and
+   table by the analytic
    prior sum, which must give one member per target with rising
    speedups (on random weights the loss-scored family can collapse to
    one member), and the table is rebuilt twice to show its spread;
@@ -68,7 +80,8 @@ Phases (any failure exits non-zero and prints no result):
    the serving CLI (``repro_torch.launch.serve --arch gpt2-small``) as a
    user runs it, which must launch the flash kernel too;
 8. (run right after phase 5, on phase 4's dense model, database and
-   prior-scored family) the distillation trainer: the 2x member stitched,
+   prior-scored family) the distillation trainer: the top member
+   (1.56x, the most structures removed) stitched,
    masked by ``masks_from_assignment`` and finetuned against the dense
    model with the reference's gradual defaults (lr 8e-5, 5 warm-up steps,
    40 steps, logit 1.0 and token 0.5 distillation) on batches of 8 x 512,
@@ -173,8 +186,9 @@ Phases (any failure exits non-zero and prints no result):
    (d_model 1600, 25 query heads on 5 KV heads of 64 with a 1024-token
    window beside 25 SSD heads of 64, state 16, chunk 256, d_ff 5504,
    vocab 32001 tied) with 4 of its 32 layers, seeded weights, phase 4's
-   calibration and search, a measured table (its ceiling printed first)
-   and targets 1.25x/1.5x/2x, with the launch counts zeroed just before
+   calibration and search, a measured table (its ceiling printed and held
+   to 0.95 of 1.9388x) and targets 1.25x/1.5x/1.72x (2x lies above the
+   ceiling), with the launch counts zeroed just before
    and read just after (hessian_accum, obs_downdate and the SSD kernel
    must each have launched); the prior-scored family, each member shrunk
    (``shrink`` == ``shrink_from_stitched``, removed rows 0) and run
@@ -183,6 +197,22 @@ Phases (any failure exits non-zero and prints no result):
    against dense attention (2e-2 of scale). Prints the stage seconds, the
    peak, the snapshots' bytes and round trip and the launches (JSON
    ``hybrid_launches``).
+14. the encoder/decoder slice: ``oneshot_prune`` on Whisper-large-v3 at
+   full width (d_model 1280, 20 heads of 64, d_ff 5120, vocab 51866
+   tied; the encoder at all 32 layers over (8, 1500, 1280) frame
+   embeddings, 4 of the 32 decoder layers), seeded weights with the
+   cross-attention gates drawn so that their tanh lies in [0.5, 0.9],
+   phase 4's calibration (each batch with its frames), measured table
+   and search, targets 1.25x/1.5x/1.67x (2x lies above the table's
+   ceiling, printed and held to 0.95 of 1.8796x). Only the decoder's
+   units are pruned and priced. Checks: every target met, removed rows 0, finite
+   losses, the logits of the dense model and the top member moved by
+   other frames, and greedy decoding of 8 tokens through
+   ``generate(frontend=...)`` and the cross cache in fp32, each step's
+   logits within 2e-3 + 1e-2 of the full forward's, on the dense model
+   and the top member; hessian_accum and obs_downdate launched (JSON
+   ``encdec_launches``). Prints stage seconds, peak, snapshot bytes and
+   their round trip, launches and each member's removals.
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 product on the
 card is a full fp32 product and the fp32 tolerances below hold. The train
@@ -220,6 +250,14 @@ HBM_BYTES_PER_S = 3.35e12
 # so phase 5 serves 64 requests (not 128) and phase 10 runs 1 Mamba-2
 # layer (not 2)
 MAIN_LAYERS = 6
+# phase 4's targets. Timed by device time, GPT-2 small's 6 layers leave
+# the unaligned 2048 x 768 x 50257 logits head more than half of the dense
+# runtime: the measured table's ceiling is 1.7465x (NVIDIA H100 80GB
+# HBM3, 700 W), so the 1.5x target stays and the 2x and 3x ones, above the
+# ceiling, became 1.53x and 1.56x, spaced up to 0.9 of it. Phase 8
+# finetunes the top member
+MAIN_TARGETS = [1.5, 1.53, 1.56]
+MAIN_CEILING = 1.7465
 # the main path's measured latency table: each module level the mean of
 # 50 calls after 5 untimed ones
 LATENCY_KW = {"reps": 50, "warmup": 5}
@@ -318,6 +356,10 @@ HESSIAN_BITWISE = [(4096, 768), (4096, 3072)]
 HESSIAN_MASKED = [(640, 6400)]
 # timed, fp32 with an accumulator: the main path's shape first
 HESSIAN_TIMED = [(4096, 3072), (4096, 768), (4096, 5120)]
+# timed, bf16 with an accumulator: Whisper-large-v3's decoder (phase 14),
+# one calibration batch of 8 x 512 tokens into wo_in (d_model 1280) and
+# wd_in (d_ff 5120)
+HESSIAN_TIMED_BF16 = [(4096, 1280), (4096, 5120)]
 
 
 def hessian_close(got, want, n):
@@ -330,30 +372,39 @@ def hessian_close(got, want, n):
             atol)
 
 
-def time_hessian(torch, kernel, plain, g, cases):
-    """Time ``kernel`` (fp32, with an accumulator) at each (N, D) of
-    ``cases`` beside ``plain`` (its plain version) and ``torch.addmm(acc,
-    x.T, x)``, each by ``time_ms`` (CUDA events around 20 eager calls);
-    returns one row per case. Each case is first checked against
-    ``plain``. The bound counts N * D * (D + 1) operations for the
-    distinct half of the symmetric product and D^2 for adding acc, on the
-    fp32 FMA pipes, against X read and acc and out moved once."""
+def time_hessian(torch, kernel, plain, g, cases, dtype=None):
+    """Time ``kernel`` (X in ``dtype``, fp32 by default, with an fp32
+    accumulator) at each (N, D) of ``cases`` beside ``plain`` (its plain
+    version) and ``torch.addmm(acc, x.T, x)`` (for bf16 X with
+    ``out_dtype=torch.float32``), each by ``time_ms`` (CUDA events around
+    20 eager calls); returns one row per case. Each case is first checked
+    against ``plain``. The bound counts N * D * (D + 1) operations for
+    the distinct half of the symmetric product and D^2 for adding acc, at
+    the peak rate of X's type (fp32 on the FMA pipes; bf16 on the tensor
+    cores, whose products of two bf16 values are exact in their fp32
+    accumulators), against X read and acc and out moved once."""
+    dtype = dtype or torch.float32
+    name = str(dtype).replace("torch.", "")
+    library = ({} if dtype == torch.float32
+               else {"out_dtype": torch.float32})
     rows = []
     for n, d in cases:
-        x = torch.randn((n, d), device="cuda", generator=g)
+        x = torch.randn((n, d), device="cuda", generator=g).to(dtype)
         acc = torch.randn((d, d), device="cuda", generator=g)
         err, ok, _ = hessian_close(kernel(x, acc), plain(x, acc), n)
-        check(ok, f"hessian_accum disagrees at N={n} D={d}")
-        row = {"shape": [n, d], "max_abs_err": err,
+        check(ok, f"hessian_accum disagrees at N={n} D={d} {name}")
+        row = {"shape": [n, d], "dtype": name, "max_abs_err": err,
                "ms": time_ms(lambda: kernel(x, acc)),
                "plain_ms": time_ms(lambda: plain(x, acc)),
-               "library_ms": time_ms(lambda: torch.addmm(acc, x.T, x))}
+               "library_ms": time_ms(
+                   lambda: torch.addmm(acc, x.T, x, **library))}
         flop = float(n) * d * (d + 1) + d * d
         row["bound_ms"], row["bound_by"] = bound_ms(
-            4.0 * (n * d + 2 * d * d), flop, PEAK_FP32)
+            x.element_size() * n * d + 4.0 * 2 * d * d, flop,
+            PEAK_FP32 if dtype == torch.float32 else PEAK_BF16)
         row["tflops"] = flop / row["ms"] / 1e9
         rows.append(row)
-        print(f"hessian_accum N={n} D={d} fp32+acc: kernel {row['ms']:.4f} "
+        print(f"hessian_accum N={n} D={d} {name}+acc: kernel {row['ms']:.4f} "
               f"ms, plain {row['plain_ms']:.4f} ms, torch.addmm "
               f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']}), {flop / 1e9:.2f} GFLOP needed, "
@@ -428,6 +479,8 @@ def check_kernels(torch, kernels):
               f"{last_wave_fill(plan.items, slots):.3f} full)")
     rows = time_hessian(torch, kernels.hessian_accum, hessian_accum_plain, g,
                         HESSIAN_TIMED)
+    rows += time_hessian(torch, kernels.hessian_accum, hessian_accum_plain, g,
+                         HESSIAN_TIMED_BF16, dtype=torch.bfloat16)
     records["hessian_accum"] = {
         "name": "hessian_accum", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/hessian_accum.cu",
@@ -436,19 +489,21 @@ def check_kernels(torch, kernels):
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
         "other_shapes": [{key: r[key] for key in (
-            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")} for r in rows[1:]]}
+            "shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")} for r in rows[1:]]}
 
     # --- obs_downdate: the FFN group (M=12, d_in=d_ff, gs=1) and the
     # attention group (d_in=d_model, gs=head_dim) of GPT-2 small, a d_live
-    # prefix, a ragged case, and a Phi-3.5-MoE layer's 16 experts (the only
-    # gs = 1 stack with d_in above 3072)
+    # prefix, a ragged case, a Phi-3.5-MoE layer's 16 experts (the only
+    # gs = 1 stack with d_in above 3072) and Whisper-large-v3's FFN stack
+    # of phase 14 (4 decoder layers, d_ff 5120, d_model 1280)
     main, other = None, []
     for M, d_in, d_out, gs, d_live in [(12, 3072, 768, 1, None),
                                        (12, 768, 768, 64, None),
                                        (12, 3072, 768, 1, 2048),
                                        (3, 130, 12, 5, 96),
-                                       (16, 6400, 4096, 1, None)]:
+                                       (16, 6400, 4096, 1, None),
+                                       (4, 5120, 1280, 1, None)]:
         W = torch.randn((M, d_in, d_out), device=dev, generator=g)
         H = torch.randn((M, d_in, d_in), device=dev, generator=g)
         A = torch.randn((M, d_in, gs), device=dev, generator=g)
@@ -492,9 +547,10 @@ def check_kernels(torch, kernels):
     return records
 
 
-# timed beside the main path's shape: a Phi-3.5-MoE layer's 16 experts,
-# (M, d_in, d_out, gs), the stack of every step of phase 7's database
-DOWNDATE_TIMED = [(16, 6400, 4096, 1)]
+# timed beside the main path's shape, (M, d_in, d_out, gs): a Phi-3.5-MoE
+# layer's 16 experts, the stack of every step of phase 7's database, and
+# Whisper-large-v3's 4 decoder FFNs, the stack of phase 14's FFN steps
+DOWNDATE_TIMED = [(16, 6400, 4096, 1), (4, 5120, 1280, 1)]
 TIMED_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
 
@@ -1353,6 +1409,71 @@ def check_small_scan_model(torch, kernels, cfg, seed: int, what: str):
     check_small_ssm_train(torch, kernels, cfg, p_cpu, what)
 
 
+def open_gates(torch, params, seed: int) -> None:
+    """Set every decoder layer's cross-attention gate, in place, from a
+    seeded draw whose tanh lies in [0.5, 0.9]: at their initial 0 the
+    frames would reach no logit, and a check could not see the encoder or
+    the cross-attention."""
+    import numpy as np
+    gate = params["layers"]["xattn"]["gate"]
+    draw = np.random.default_rng(seed).uniform(0.5, 0.9, tuple(gate.shape))
+    gate.copy_(torch.from_numpy(np.arctanh(draw)))
+
+
+def check_small_encdec(torch):
+    """Phase 3, Whisper: the reference's smoke shape
+    (``smoke_config("whisper-large-v3")``: 2 decoder and 2 encoder
+    layers, d_model 128, 4 heads of 32, d_ff 256, 16 frames of 128, vocab
+    512) in fp32, its cross-attention gates opened (``open_gates``), on
+    the card and on the CPU on the same weights and frames: logits within
+    1e-4 of their scale, Hessians within 1e-4 of theirs, database errors
+    and orders as for the small GPT-2, and greedy tokens through the
+    cross cache (``generate(frontend=...)``) equal."""
+    import numpy as np
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.database import build_database
+    from repro_torch.core.hessian import collect_hessians
+    from repro_torch.data import calibration_batches
+    from repro_torch.models import forward, generate, model_init
+    from repro_torch.models.transformer import tree_to
+
+    cfg = smoke_config("whisper-large-v3").replace(dtype="float32")
+    p_cpu = model_init(cfg, torch.Generator().manual_seed(6), device="cpu")
+    open_gates(torch, p_cpu, 6)
+    p_gpu = tree_to(p_cpu, "cuda")
+    calib = calibration_batches(cfg, 16, 64, batch=8)
+    tokens, frames = calib[0]["tokens"], calib[0]["frontend"]
+    lg_cpu = forward(cfg, p_cpu, tokens, frontend_embeds=frames)["logits"]
+    lg_gpu = forward(cfg, p_gpu, tokens.cuda(),
+                     frontend_embeds=frames.cuda())["logits"].cpu()
+    err, scale = float((lg_gpu - lg_cpu).abs().max()), float(
+        lg_cpu.abs().max())
+    print(f"small Whisper: gates {p_cpu['layers']['xattn']['gate'].tolist()}"
+          f"; logits card vs CPU max_abs_err={err:.3e} (scale {scale:.3e}, "
+          f"tol 1e-4*scale)")
+    check(err <= 1e-4 * scale, "Whisper logits disagree between card and "
+          "CPU")
+    h_cpu = collect_hessians(cfg, p_cpu, calib, device="cpu")
+    h_gpu = collect_hessians(cfg, p_gpu, calib, device="cuda")
+    herr = max(float((h_gpu[k].cpu() - h_cpu[k]).abs().max()) for k in h_cpu)
+    hscale = max(float(h.abs().max()) for h in h_cpu.values())
+    print(f"small Whisper: Hessians of {list(h_cpu)} card vs CPU "
+          f"max_abs_err={herr:.3e} (scale {hscale:.3e}, tol 1e-4*scale)")
+    check(herr <= 1e-4 * hscale,
+          "Whisper Hessians disagree between card and CPU")
+    compare_databases(np, build_database(cfg, p_cpu, h_cpu, device="cpu"),
+                      build_database(cfg, p_gpu, h_cpu, device="cuda"),
+                      "small Whisper")
+    prompt, fe = tokens[:2, :40], frames[:2]
+    t_cpu = generate(cfg, p_cpu, prompt, 12, frontend=fe)
+    t_gpu = generate(cfg, p_gpu, prompt.cuda(), 12,
+                     frontend=fe.cuda()).cpu()
+    print(f"small Whisper: greedy tokens of {tuple(prompt.shape)} prompts "
+          f"with their frames, 12 steps through the cross cache, card == "
+          f"CPU: {torch.equal(t_gpu, t_cpu)}")
+    check(torch.equal(t_gpu, t_cpu), "Whisper greedy tokens differ")
+
+
 def ssm_step_grads(torch, cfg, params, teacher, batch):
     """(loss, gradients) of one distillation train step's loss on
     ``params`` (logit 1.0 and token 0.5 distillation against ``teacher``),
@@ -1501,6 +1622,21 @@ def check_small_moe(torch):
                   "capacity")
 
 
+def check_ceiling(res, expected, what):
+    """The run's measured table's ceiling, its dense runtime over the
+    logits head that no unit removes, printed and held to at least 0.95 of
+    ``expected`` (the ceiling measured when the phase's fixed targets were
+    chosen), so that a table that misprices the head or the layers fails
+    here and not only through the targets it would let slip."""
+    ceiling = res.dense_runtime / res.table.base
+    print(f"{what}: measured table dense runtime {res.dense_runtime * 1e3:.4f}"
+          f" ms over its logits head {res.table.base * 1e3:.4f} ms: ceiling "
+          f"{ceiling:.4f}x (expected at least 0.95 x {expected}x)")
+    check(ceiling >= 0.95 * expected,
+          f"{what}: the measured table's ceiling {ceiling:.4f}x is below "
+          f"0.95 x {expected}x")
+
+
 def run_main_path(torch, kernels):
     """Phase 4: oneshot_prune on full-width GPT-2 small at MAIN_LAYERS."""
     from repro_torch.configs import GPT2_SMALL
@@ -1516,7 +1652,7 @@ def run_main_path(torch, kernels):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     env = InferenceEnv(batch=16, seq=128, mode="prefill", hw=None)
-    targets = [1.5, 2.0, 3.0]
+    targets = MAIN_TARGETS
 
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -1533,7 +1669,7 @@ def run_main_path(torch, kernels):
           f"d_model={cfg.d_model} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
           f"dtype={cfg.dtype}; calibration 32 x 512 tokens in batches of 8; "
           f"env batch={env.batch} seq={env.seq} {env.mode}, measured table "
-          f"({LATENCY_KW})")
+          f"({LATENCY_KW}); targets {targets}")
     print(f"main path: setup (weights + tokens) {setup_s:.3f} s, "
           f"oneshot_prune {total_s:.3f} s, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1542,6 +1678,7 @@ def run_main_path(torch, kernels):
     print(f"main path launches: {launches}")
     print(f"dense: table runtime {res.dense_runtime * 1e3:.4f} ms, "
           f"calibration loss {res.dense_loss:.4f}")
+    check_ceiling(res, MAIN_CEILING, "main path")
     for t in targets:
         v = res.variants[t]
         removed = sum(v.assignment.values())
@@ -1802,11 +1939,11 @@ def serve_cli(torch, kernels):
         check(launches[name] > 0, f"{name} never launched by the serving CLI")
 
 
-# phase 8: the 2x member of phase 4's prior-scored family finetuned against
-# the dense model with the reference's gradual defaults
-# (src/repro/core/pipeline.py gradual_prune) on batches of 8 x 512; run A
-# takes 40 steps, run B stops at 30 and resumes from its step-20 checkpoint
-TRAIN_TARGET = 2.0
+# phase 8: the top member of phase 4's prior-scored family (1.56x, the
+# most structures removed) finetuned against the dense model with the
+# reference's gradual defaults (src/repro/core/pipeline.py gradual_prune)
+# on batches of 8 x 512; run A takes 40 steps, run B stops at 30 and
+# resumes from its step-20 checkpoint
 TRAIN_KW = {"learning_rate": 8e-5, "warmup_steps": 5, "total_steps": 40,
             "distill_logit": 1.0, "distill_token": 0.5}
 TRAIN_BATCH, TRAIN_SEQ = 8, 512
@@ -1831,7 +1968,7 @@ def _same_state(torch, a, b):
 
 
 def run_train_path(torch, kernels, params, calib, db, fam):
-    """Phase 8: finetune the 2x member, stop and resume it bit for bit,
+    """Phase 8: finetune the top member, stop and resume it bit for bit,
     shrink it, rebuild its database, and run the training CLI."""
     import shutil
     import tempfile
@@ -1851,7 +1988,8 @@ def run_train_path(torch, kernels, params, calib, db, fam):
 
     cfg = GPT2_SMALL.replace(num_layers=MAIN_LAYERS)
     steps = TRAIN_KW["total_steps"]
-    a = fam[TRAIN_TARGET].assignment
+    target = MAIN_TARGETS[-1]
+    a = fam[target].assignment
     student = apply_assignment(cfg, params, db, a)
     masks = masks_from_assignment(cfg, student, db, a)
     tcfg = TrainConfig(**TRAIN_KW)
@@ -1880,7 +2018,7 @@ def run_train_path(torch, kernels, params, calib, db, fam):
         log = ta.metrics_log
         step_ms = float(np.median(ta.watchdog.times[2:])) * 1e3
         tokens_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
-        print(f"train: {cfg.name} {TRAIN_TARGET}x member ("
+        print(f"train: {cfg.name} {target}x member ("
               f"{sum(a.values())} structures removed) against the dense "
               f"teacher, {TRAIN_KW}, batches {TRAIN_BATCH} x {TRAIN_SEQ}")
         print(f"train: run A {steps} steps in {run_a_s:.3f} s (checkpoints "
@@ -1955,7 +2093,7 @@ def run_train_path(torch, kernels, params, calib, db, fam):
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
         finite = bool(torch.isfinite(got).all())
-        print(f"train: finetuned {TRAIN_TARGET}x member shrunk vs masked "
+        print(f"train: finetuned {target}x member shrunk vs masked "
               f"logits max_abs_err={err:.4e} (scale {scale:.4e}, tol "
               f"{STITCHED_TOL:g}*scale), finite {finite}")
         check(finite and err <= STITCHED_TOL * scale,
@@ -2560,9 +2698,8 @@ def run_ssm_family_path(torch, kernels):
 # (73.8 GB of snapshots) would not fit the card's 80 GB; 1 does. Expert
 # mode keeps 2 snapshots an expert (1.68 GB a layer)
 MOE_LAYERS = 1
-# with 1 layer the unprunable logits head (2048 x 4096 x 32064) is about a
-# quarter of the dense runtime in the measured table, so no member beats
-# about 4x: 1.25x, 1.5x and 2x are in reach in both modes
+# with 1 layer the unprunable logits head (2048 x 4096 x 32064) bounds
+# every member's speedup, at a measured ceiling near 4.1x
 MOE_TARGETS = [1.25, 1.5, 2.0]
 MOE_SERVE = {"max_len": 576, "slots": 8, "requests": 16}
 MOE_STREAM = {"seed": 0, "rate": 50.0, "prompt_lens": (128, 256, 384, 512),
@@ -2592,13 +2729,14 @@ def run_moe_path(torch, kernels):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     env = InferenceEnv(batch=16, seq=128, mode="prefill", hw=None)
+    targets = MOE_TARGETS
     print(f"MoE path: {cfg.name} layers={cfg.num_layers} of "
           f"{PHI35_MOE.num_layers} d_model={cfg.d_model} heads="
           f"{cfg.num_heads}:{cfg.num_kv_heads}x{cfg.resolved_head_dim} experts="
           f"{cfg.num_experts} top-{cfg.num_experts_per_tok} d_ff={cfg.d_ff} "
           f"vocab={cfg.vocab_size} dtype={cfg.dtype}; calibration 32 x 512 "
           f"tokens in batches of 8; env batch={env.batch} seq={env.seq} "
-          f"{env.mode}, measured table ({LATENCY_KW}); targets {MOE_TARGETS};"
+          f"{env.mode}, measured table ({LATENCY_KW}); targets {targets};"
           f" setup (weights + tokens) {setup_s:.3f} s")
 
     kernels.reset_launch_counts()
@@ -2612,7 +2750,7 @@ def run_moe_path(torch, kernels):
         t0 = time.perf_counter()
         run_moe_mode(torch, kernels, database,
                      cfg.replace(moe_prune_unit=mode), params, calib, env,
-                     hess)
+                     hess, targets)
         print(f"MoE path: {mode} mode done ({time.perf_counter() - t0:.2f} "
               "s)")
     del hess
@@ -2645,7 +2783,8 @@ def run_moe_path(torch, kernels):
     return launches, params, calib
 
 
-def run_moe_mode(torch, kernels, database, cfg, params, calib, env, hess):
+def run_moe_mode(torch, kernels, database, cfg, params, calib, env, hess,
+                 targets):
     """Phase 7, one MoE prune mode: oneshot_prune from the shared Hessians,
     every distinct member shrunk and held against its stitched model, the
     family served, engine tokens against per-request decoding."""
@@ -2661,7 +2800,7 @@ def run_moe_mode(torch, kernels, database, cfg, params, calib, env, hess):
     database.reset_snapshot_traffic()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = oneshot_prune(cfg, params, calib, env, MOE_TARGETS,
+    res = oneshot_prune(cfg, params, calib, env, targets,
                         latency_backend="measure", latency_kw=LATENCY_KW,
                         search_steps=48, search_pop=16, seed=0,
                         hessians=hess, device="cuda")
@@ -2688,7 +2827,7 @@ def run_moe_mode(torch, kernels, database, cfg, params, calib, env, hess):
           f"{res.dense_runtime / res.table.base:.2f}x), calibration loss "
           f"{res.dense_loss:.4f}")
     check(math.isfinite(res.dense_loss), f"MoE {mode}: non-finite dense loss")
-    for t in MOE_TARGETS:
+    for t in targets:
         v = res.variants[t]
         experts = [v.assignment[n] for n in sorted(v.assignment)
                    if ".expert" in n]
@@ -2709,7 +2848,7 @@ def run_moe_mode(torch, kernels, database, cfg, params, calib, env, hess):
     for t, a in assignments.items():
         distinct.setdefault(tuple(sorted(a.items())), t)
     print(f"MoE {mode}: {len(distinct)} distinct member(s) for "
-          f"{len(MOE_TARGETS)} targets")
+          f"{len(targets)} targets")
 
     # each distinct member: shrink == shrink_from_stitched, and its shrunk
     # logits against its stitched model's with no token dropped
@@ -3093,11 +3232,12 @@ def run_examples(torch, kernels):
 # database keeps about 0.92 GB of fp16 snapshots (FFN, SSD heads, KV
 # groups) and 141 MB of fp32 Hessians
 HYBRID_LAYERS = 4
-# with 4 layers the tied logits head (2048 x 1600 x 32001) is about a
-# quarter of the dense runtime; the measured table's ceiling (its dense
-# runtime over that head) is printed first, and a top target above 0.9 of
-# it is lowered to that
-HYBRID_TARGETS = [1.25, 1.5, 2.0]
+# the tied logits head (2048 x 1600 x 32001) bounds every member's speedup:
+# the measured table's ceiling is 1.9388x (NVIDIA H100 80GB HBM3, 700 W),
+# so 1.25x and 1.5x stay and the 2x target, above it, became 1.72x (0.89
+# of the ceiling)
+HYBRID_TARGETS = [1.25, 1.5, 1.72]
+HYBRID_CEILING = 1.9388
 # one full-width hybrid layer's forward at HYBRID_LONG tokens, where "auto"
 # attention runs the flash kernel (past 2048 tokens), against dense
 # attention: the logits within 2e-2 of their scale
@@ -3112,10 +3252,8 @@ def run_hybrid_path(torch, kernels):
     from repro_torch.configs import HYMBA_1P5B
     from repro_torch.core import database
     from repro_torch.core.database import apply_assignment
-    from repro_torch.core.latency import build_table
     from repro_torch.core.oneshot import oneshot_prune
     from repro_torch.core.shrink import shrink, shrink_from_stitched
-    from repro_torch.core.structures import registry
     from repro_torch.data import calibration_batches
     from repro_torch.models import forward, model_init
     from repro_torch.models.pruned import forward_pruned
@@ -3128,12 +3266,7 @@ def run_hybrid_path(torch, kernels):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     env = InferenceEnv(batch=16, seq=128, mode="prefill", hw=None)
-    probe = build_table(cfg, env, backend="measure", device="cuda",
-                        **LATENCY_KW)
-    ceiling = probe.dense_runtime(registry(cfg)) / probe.base
-    targets = list(HYBRID_TARGETS)
-    if targets[-1] > 0.9 * ceiling:
-        targets[-1] = round(0.9 * ceiling, 2)
+    targets = HYBRID_TARGETS
     print(f"Hymba path: {cfg.name} layers={cfg.num_layers} of "
           f"{HYMBA_1P5B.num_layers} d_model={cfg.d_model} attention "
           f"{cfg.num_heads}x{cfg.resolved_head_dim} on {cfg.num_kv_heads} KV "
@@ -3142,10 +3275,7 @@ def run_hybrid_path(torch, kernels):
           f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} dtype={cfg.dtype}; "
           f"calibration 32 x 512 tokens in batches of 8; env batch="
           f"{env.batch} seq={env.seq} {env.mode}, measured table "
-          f"({LATENCY_KW}); a first table's dense runtime "
-          f"{probe.dense_runtime(registry(cfg)) * 1e3:.4f} ms over its "
-          f"logits head {probe.base * 1e3:.4f} ms: ceiling {ceiling:.4f}x; "
-          f"targets {targets}")
+          f"({LATENCY_KW}); targets {targets}")
 
     kernels.reset_launch_counts()
     database.reset_snapshot_traffic()
@@ -3176,10 +3306,8 @@ def run_hybrid_path(torch, kernels):
         f"{k} levels {res.table.grids[k].tolist()} ms "
         f"{[round(float(x) * 1e3, 4) for x in res.table.times[k]]}"
         for k in res.table.grids))
-    print(f"Hymba dense: table runtime {res.dense_runtime * 1e3:.4f} ms "
-          f"(logits head {res.table.base * 1e3:.4f} ms, so at most "
-          f"{res.dense_runtime / res.table.base:.2f}x), calibration loss "
-          f"{res.dense_loss:.4f}")
+    print(f"Hymba dense: calibration loss {res.dense_loss:.4f}")
+    check_ceiling(res, HYBRID_CEILING, "Hymba path")
     check(math.isfinite(res.dense_loss), "Hymba: non-finite dense loss")
     for t in targets:
         v = res.variants[t]
@@ -3273,6 +3401,179 @@ def run_hybrid_path(torch, kernels):
     return launches
 
 
+# phase 14: Whisper-large-v3 (configs/whisper_large_v3.py, arXiv:2212.04356)
+# at full width: the encoder at all 32 of its layers over (8, 1500, 1280)
+# frame embeddings, and 4 of the 32 decoder layers (d_model 1280, 20 heads
+# of 64, d_ff 5120, vocab 51866 tied). Only the decoder's units are pruned
+# and priced, as in the reference; the encoder and the cross-attention stay
+# dense. The 0.8 B weights are drawn on the card's generator (the host's
+# takes over a minute for them) and the gates opened (``open_gates``)
+ENCDEC_LAYERS = 4
+# the tied logits head (2048 x 1280 x 51866) bounds every member's speedup:
+# the measured table's ceiling is 1.8796x (NVIDIA H100 80GB HBM3, 700 W),
+# so 1.25x and 1.5x stay and the 2x target, above it, became 1.67x (0.89
+# of the ceiling)
+ENCDEC_TARGETS = [1.25, 1.5, 1.67]
+ENCDEC_CEILING = 1.8796
+# greedy decoding through the cross cache in fp32, 8 tokens after a
+# 32-token prompt: each position's logits within the reference's 2e-3 abs
+# + 1e-2 rel of the full forward's (tests/test_models_smoke.py)
+ENCDEC_PROMPT, ENCDEC_STEPS = 32, 8
+ENCDEC_TOL = (2e-3, 1e-2)
+ENCDEC_KERNELS = ("hessian_accum", "obs_downdate")
+
+
+def check_encdec_decode(torch, cfg, params, prompt, frames, what):
+    """Greedy ``generate(frontend=...)`` of ENCDEC_STEPS tokens, then the
+    same prefill and decode steps by hand: each step's logits against the
+    full forward over the prompt and the generated tokens (ENCDEC_TOL),
+    and their argmax against the generated tokens."""
+    from repro_torch.models import forward, generate, serve_prefill, serve_step
+    s = prompt.shape[1]
+    atol, rtol = ENCDEC_TOL
+    with torch.no_grad():
+        toks = generate(cfg, params, prompt, ENCDEC_STEPS, frontend=frames)
+        full = forward(cfg, params, torch.cat([prompt, toks], 1),
+                       frontend_embeds=frames)["logits"]
+        logits, cache = serve_prefill(
+            cfg, params, {"tokens": prompt, "frontend": frames},
+            max_len=s + ENCDEC_STEPS)
+        worst, within, greedy = 0.0, True, True
+        for t in range(ENCDEC_STEPS):
+            want, got = full[:, s - 1 + t], logits[:, 0]
+            diff = (got - want).abs()
+            worst = max(worst, float(diff.max()))
+            within = within and bool((diff <= atol + rtol * want.abs()).all())
+            greedy = greedy and torch.equal(got.argmax(-1), toks[:, t])
+            if t + 1 < ENCDEC_STEPS:
+                logits, cache = serve_step(cfg, params, cache,
+                                           toks[:, t:t + 1])
+    print(f"  {what} fp32: greedy decode of {ENCDEC_STEPS} tokens after "
+          f"{tuple(prompt.shape)} prompts through the cross cache "
+          f"{tuple(cache['cross']['k'].shape)}: logits vs the full forward "
+          f"max_abs_err={worst:.3e} (tol {atol:g} + {rtol:g}*|logit|) "
+          f"{'ok' if within else 'MISMATCH'}; argmax == generated tokens: "
+          f"{greedy}")
+    check(within, f"Whisper {what}: decoded logits disagree with the full "
+          "forward")
+    check(greedy, f"Whisper {what}: generate's tokens are not the argmax of "
+          "its logits")
+
+
+def run_encdec_path(torch, kernels):
+    """Phase 14: oneshot_prune on Whisper-large-v3 (encoder 32 layers,
+    decoder ENCDEC_LAYERS), then the frames' effect and fp32 decoding."""
+    from repro_torch.configs import WHISPER_LARGE_V3
+    from repro_torch.core import database
+    from repro_torch.core.oneshot import oneshot_prune
+    from repro_torch.data import calibration_batches
+    from repro_torch.models import forward, model_init
+    from repro_torch.runtime.costmodel import InferenceEnv
+
+    cfg = WHISPER_LARGE_V3.replace(num_layers=ENCDEC_LAYERS)
+    t0 = time.perf_counter()
+    params = model_init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    open_gates(torch, params, 0)
+    calib = calibration_batches(cfg, 32, 512, batch=8)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    gates = [round(math.tanh(g), 4)
+             for g in params["layers"]["xattn"]["gate"].tolist()]
+    env = InferenceEnv(batch=16, seq=128, mode="prefill", hw=None)
+    targets = ENCDEC_TARGETS
+    print(f"Whisper path: {cfg.name} encoder {cfg.num_encoder_layers} "
+          f"layers over {cfg.num_frontend_tokens} x {cfg.frontend_dim} "
+          f"frames, decoder {cfg.num_layers} of {WHISPER_LARGE_V3.num_layers}"
+          f" layers, d_model={cfg.d_model} {cfg.num_heads}x"
+          f"{cfg.resolved_head_dim} heads, d_ff={cfg.d_ff} vocab="
+          f"{cfg.vocab_size} dtype={cfg.dtype}, {n_params} parameters; gates "
+          f"tanh {gates}; calibration 32 x 512 tokens in batches of 8, each "
+          f"with {tuple(calib[0]['frontend'].shape)} frames; env batch="
+          f"{env.batch} seq={env.seq} {env.mode}, measured table "
+          f"({LATENCY_KW}); targets {targets}")
+
+    kernels.reset_launch_counts()
+    database.reset_snapshot_traffic()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = oneshot_prune(cfg, params, calib, env, targets,
+                        latency_backend="measure", latency_kw=LATENCY_KW,
+                        search_steps=48, search_pop=16, seed=0,
+                        device="cuda")
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    traffic = dict(database.SNAPSHOT_TRAFFIC)
+    snap_bytes = sum(m.snapshots.nbytes for m in res.db.values())
+    levels = {m.mod.kind: len(m.levels) for m in res.db.values()}
+    print(f"Whisper path: setup (weights + tokens + frames) {setup_s:.3f} s,"
+          f" oneshot_prune {total_s:.3f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"{len(res.db)} modules, levels {levels}, database snapshots "
+          f"{snap_bytes} bytes ({snap_bytes / cfg.num_layers / 1e9:.3f} GB a "
+          f"layer); host round trip: fetch {traffic['fetch_bytes']} bytes in "
+          f"{traffic['fetch_s']:.3f} s, upload {traffic['upload_bytes']} bytes"
+          f" in {traffic['upload_s']:.3f} s")
+    print("Whisper stage seconds: " + json.dumps(
+        {k: round(v, 4) for k, v in res.stage_seconds.items()}))
+    print(f"Whisper path launches: {launches}")
+    print(f"Whisper table: base {res.table.base * 1e3:.4f} ms, " + ", ".join(
+        f"{k} levels {res.table.grids[k].tolist()} ms "
+        f"{[round(float(x) * 1e3, 4) for x in res.table.times[k]]}"
+        for k in res.table.grids))
+    print(f"Whisper dense: calibration loss {res.dense_loss:.4f}")
+    check_ceiling(res, ENCDEC_CEILING, "Whisper path")
+    check(math.isfinite(res.dense_loss), "Whisper: non-finite dense loss")
+    for t in targets:
+        v = res.variants[t]
+        kinds = {k: sum(r for n, r in v.assignment.items()
+                        if n.endswith("." + k)) for k in levels}
+        zero = rows_zero(torch, v.params, res.db, v.assignment)
+        print(f"  target {t}x: speedup {v.speedup:.3f}x, runtime "
+              f"{v.runtime * 1e3:.4f} ms, loss {v.calib_loss:.4f}, removed "
+              f"{kinds} (KV groups, FFN rows), per module "
+              f"{dict(sorted(v.assignment.items()))}, evals "
+              f"{v.search.n_evals}; removed rows 0: {zero}")
+        check(v.speedup >= t, f"Whisper target {t}x not met: "
+              f"{v.speedup:.4f}x")
+        check(math.isfinite(v.calib_loss), f"Whisper {t}x: non-finite loss")
+        check(zero, f"Whisper {t}x: a removed structure's rows are not 0")
+        for grp, leaf in (("attn", "wo"), ("ffn", "wd")):
+            w = v.params["layers"][grp][leaf]
+            check(w.shape == params["layers"][grp][leaf].shape
+                  and bool(torch.isfinite(w).all()),
+                  f"Whisper {t}x: {leaf} has the wrong shape or non-finite "
+                  "values")
+    for name in ENCDEC_KERNELS:
+        check(launches[name] > 0, f"{name} never launched on the Whisper "
+              "path")
+
+    top = targets[-1]
+    member = res.variants[top].params
+    tokens = calib[0]["tokens"].cuda()
+    with torch.no_grad():
+        for what, p in (("dense", params), (f"{top}x member", member)):
+            a = forward(cfg, p, tokens, frontend_embeds=calib[0]["frontend"])
+            b = forward(cfg, p, tokens, frontend_embeds=calib[1]["frontend"])
+            moved = float((a["logits"] - b["logits"]).abs().max())
+            scale = float(a["logits"].abs().max())
+            print(f"  {what}: logits on {tuple(tokens.shape)} tokens move by "
+                  f"{moved:.4e} (scale {scale:.4e}) when the frames change")
+            check(moved > 1e-2 * scale, f"Whisper {what}: the frames do not "
+                  "reach the logits")
+            del a, b
+    prompt = tokens[:2, :ENCDEC_PROMPT]
+    frames = calib[0]["frontend"][:2].float().cuda()
+    del res, calib
+    torch.cuda.empty_cache()
+    cfg32 = cfg.replace(dtype="float32")
+    for what, p in (("dense", params), (f"{top}x member", member)):
+        check_encdec_decode(torch, cfg32, p, prompt, frames, what)
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -3324,6 +3625,7 @@ def main() -> int:
     check_small_serving(torch)
     check_small_ssm(torch, kernels)
     check_small_hybrid(torch, kernels)
+    check_small_encdec(torch)
     check_small_moe(torch)
     print(f"phase 3: small slices agree between card and CPU "
           f"({time.perf_counter() - t0:.2f} s)")
@@ -3389,6 +3691,11 @@ def main() -> int:
     t0 = time.perf_counter()
     hybrid_launches = run_hybrid_path(torch, kernels)
     print(f"phase 13: Hymba path done ({time.perf_counter() - t0:.2f} s)")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    encdec_launches = run_encdec_path(torch, kernels)
+    print(f"phase 14: Whisper path done ({time.perf_counter() - t0:.2f} s)")
 
     for name, rec in records.items():
         rec["launches"] = launches[name]
@@ -3398,6 +3705,7 @@ def main() -> int:
         rec["ssm_family_launches"] = ssm_family_launches[name]
         rec["moe_family_launches"] = moe_family_launches[name]
         rec["hybrid_launches"] = hybrid_launches[name]
+        rec["encdec_launches"] = encdec_launches[name]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     # flash attention's and the SSD passes' device-only times ride beside
@@ -3405,13 +3713,13 @@ def main() -> int:
     # hessian_accum's and the SSD pass's other shapes
     # beside their main shape, and each kernel's launches on the MoE path
     # (phase 7), on the trainer's path (phase 8) and in the family engines'
-    # runs A (phases 9 and 10), the MoE family run (phase 11) and the Hymba
-    # path (phase 13) beside those on its own path (phases 4-6; the SSD
-    # backward's own path is phase 10)
+    # runs A (phases 9 and 10), the MoE family run (phase 11), the Hymba
+    # path (phase 13) and the Whisper path (phase 14) beside those on its
+    # own path (phases 4-6; the SSD backward's own path is phase 10)
     extra = ["note", "device_ms", "library_device_ms", "passes_ms",
              "other_shapes", "moe_launches", "train_launches",
              "family_launches", "ssm_family_launches", "moe_family_launches",
-             "hybrid_launches"]
+             "hybrid_launches", "encdec_launches"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in records.values()]}))
     print(card_line())

@@ -11,16 +11,17 @@ last dropped level skipped as it times nothing), in the environment of
 ``chip_smoke.py``'s one-shot phases (16 x 128 prefill, the config's
 compute type), and prints for each:
 
-* ``table_ms``: the table's own number (``core.latency._time_fn``, CUDA
-  events around 50 eager calls after 5 untimed ones, as phase 4 builds
-  it);
+* ``table_ms``: the table's own number (``core.latency._time_fn``: 5
+  untimed calls, 50 calls captured in one CUDA graph, and CUDA events
+  around a replay of it, as phase 4 builds it);
 * ``device_ms``: the device time a call, from ``torch.profiler`` over 10
   calls (the sum of its kernels' and copies' device time), and the host
   wall time a call over the same calls;
 * the activities that take the most device time a call.
 
 A module whose ``table_ms`` is far above its ``device_ms`` is timed by
-its host path, not by the device. Needs a GPU; prints the card's name
+its host path, not by the device (the fault of the eager timing that the
+graph replay replaced); ``table_ms`` near ``device_ms`` is device time. Needs a GPU; prints the card's name
 and power limit first.
 """
 from __future__ import annotations

@@ -23,12 +23,13 @@ from .mamba2_2p7b import MAMBA2_2P7B
 from .phi35_moe_42b import CONFIG as PHI35_MOE
 from .qwen15_110b import CONFIG as QWEN15_110B
 from .qwen2_72b import CONFIG as QWEN2_72B
+from .whisper_large_v3 import CONFIG as WHISPER_LARGE_V3
 
 ARCHS = {
     c.name: c for c in [
         DBRX_132B, PHI35_MOE, MAMBA2_2P7B, H2O_DANUBE_1P8B, QWEN15_110B,
-        QWEN2_72B, INTERNLM2_20B, HYMBA_1P5B, BERT_BASE, BERT_LARGE,
-        GPT2_SMALL,
+        QWEN2_72B, INTERNLM2_20B, WHISPER_LARGE_V3, HYMBA_1P5B, BERT_BASE,
+        BERT_LARGE, GPT2_SMALL,
     ]
 }
 
@@ -40,9 +41,9 @@ ASSIGNED = [
     "internlm2-20b", "whisper-large-v3", "hymba-1.5b",
 ]
 
-# the reference's architectures whose paths (cross-attention over a
-# frontend, an encoder/decoder) the port does not run yet
-NOT_PORTED = ("llama-3.2-vision-11b", "whisper-large-v3")
+# the reference's architectures whose paths (grouped cross-attention
+# layers over a vision frontend) the port does not run yet
+NOT_PORTED = ("llama-3.2-vision-11b",)
 
 # archs with sub-quadratic attention for which long_500k is runnable
 SUBQUADRATIC = {"mamba2-2.7b", "hymba-1.5b", "h2o-danube-1.8b"}
@@ -73,6 +74,9 @@ def smoke_config(name: str) -> ModelConfig:
     if c.ssm_state:
         kw.update(ssm_state=16, ssm_head_dim=32, ssm_chunk=32,
                   ssm_expand=max(1, c.ssm_expand))
+    if c.encoder_decoder:
+        kw.update(num_encoder_layers=2, num_frontend_tokens=16,
+                  frontend_dim=128)
     if c.attention == "sliding_window":
         kw.update(window_size=64)
     return c.replace(**kw)
@@ -90,4 +94,5 @@ __all__ = ["ARCHS", "ASSIGNED", "BERT_BASE", "BERT_LARGE", "DBRX_132B",
            "INTERNLM2_20B", "LM_SHAPES", "LONG_500K", "MAMBA2_2P7B",
            "ModelConfig", "NOT_PORTED", "PHI35_MOE", "PREFILL_32K",
            "QWEN15_110B", "QWEN2_72B", "SUBQUADRATIC", "ShapeConfig",
-           "TRAIN_4K", "get_config", "shapes_for", "smoke_config"]
+           "TRAIN_4K", "WHISPER_LARGE_V3", "get_config", "shapes_for",
+           "smoke_config"]

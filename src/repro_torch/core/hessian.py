@@ -47,8 +47,11 @@ def collect_hessians(cfg, params, batches: List[Dict], *,
     skipped = 0
     with torch.no_grad():
         for batch in batches:
+            # an encoder/decoder's frames ride beside the tokens
+            frames = ({"frontend_embeds": batch["frontend"].to(dev)}
+                      if "frontend" in batch else {})
             caps = forward(cfg, params, batch["tokens"].to(dev),
-                           capture=True)["captures"]
+                           capture=True, **frames)["captures"]
             xs = {m.name: get_capture(caps, m) for m in mods}
             ok = torch.stack([torch.isfinite(x).all()
                               for x, _ in xs.values()]).all()

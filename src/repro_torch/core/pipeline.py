@@ -139,7 +139,7 @@ from ..checkpoint.manager import (CheckpointManager, CheckpointWriteError,
                                   atomic_write_json, file_sha256, load_json,
                                   npz_bytes, restore_pytree, retry_io)
 from ..configs.base import TrainConfig
-from ..models.pruned import PrunedModel
+from ..models.pruned import PrunedModel, refuse_encoder_decoder
 from ..models.transformer import tree_to
 from ..optim.adamw import tree_leaves, tree_map
 from ..robustness.integrity import checked_npz_load, quarantine_file
@@ -506,6 +506,8 @@ def gradual_prune(cfg, params, env, targets: Sequence[float],
     the measure backend searches its remaining targets against another
     table: the cost-model backend keeps a resume bit-equal.
     """
+    refuse_encoder_decoder(cfg, "gradual_prune (each target exports a "
+                           "shrunk model)")
     dev = resolve_device(device)
     if any(a is not None for a in (mesh, data_axes, mc, specs)):
         raise NotImplementedError(

@@ -14,8 +14,10 @@ dead; which twins die with which structures is each kind's
 
 A layer whose every unit sits at its full-drop level shrinks to an empty
 ``PrunedLayer``: the pruned forward passes straight through it (and
-``init_cache_pruned`` gives it no KV cache). The shrunk model gives the
-masked model's outputs; only the compute gets smaller.
+``init_cache_pruned`` gives it no KV cache), adding only a GELU FFN's
+output bias ``bd``, which the masked model's emptied FFN still adds (the
+reference drops it; a finetune makes it nonzero). The shrunk model gives
+the masked model's outputs; only the compute gets smaller.
 
 ``shrink`` and ``shrink_from_stitched`` are one driver over two weight
 sources: a host context (numpy indexing over params and the database's
@@ -31,7 +33,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from ..models.pruned import PrunedLayer, PrunedModel
+from ..models.pruned import (PrunedLayer, PrunedModel,
+                             refuse_encoder_decoder)
 from ..runtime.device import DeviceLike, resolve_device
 from .database import ModuleDB
 from .structures import UNITS, dropped_layers
@@ -141,6 +144,7 @@ def shrink(cfg, params, db: Dict[str, ModuleDB], assignment: Dict[str, int],
            device: DeviceLike = None) -> PrunedModel:
     """The shrunk model of ``assignment``, sliced on the host from
     ``params`` and the database's snapshots, on ``device``."""
+    refuse_encoder_decoder(cfg, "shrink")
     dev = resolve_device(device)
     ctx = _HostCtx(params["layers"], db, assignment, dev)
     return _shrink_impl(cfg, params, ctx, dev)
@@ -151,6 +155,7 @@ def shrink_from_stitched(cfg, stitched, db: Dict[str, ModuleDB],
     """The shrunk model of ``assignment`` from a ``SnapshotCache.apply``
     stitched tree, sliced where the tree lives (no host round trip). Gives
     the same ``PrunedModel`` as ``shrink``."""
+    refuse_encoder_decoder(cfg, "shrink_from_stitched")
     dev = stitched["embed"]["table"].device
     ctx = _DeviceCtx(stitched["layers"], db, assignment)
     return _shrink_impl(cfg, stitched, ctx, dev)

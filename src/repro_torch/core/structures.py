@@ -348,9 +348,13 @@ class FfnUnit(PruneUnit):
         removed = ctx.assignment[name]
         kept = mdb.kept_structures(removed)
         lcfg.d_ff = len(kept)
-        if len(kept) == 0:
-            return
         fp = ctx.layer_params("ffn", layer)
+        if len(kept) == 0:
+            # the masked FFN's output is then its bias alone: keep it (the
+            # reference drops it, which is exact only while it is 0)
+            if "bd" in fp:
+                lp["ffn"] = {"bd": ctx.arr(fp["bd"])}
+            return
         wd = ctx.take(ctx.out_mat(mdb, removed, fp["wd"]), kept, 0)
         if "wg" in fp:
             lp["ffn"] = {"wg": ctx.take(fp["wg"], kept, 1),
@@ -420,7 +424,8 @@ def drop_layer(assignment: Dict[str, int], mods: List[PrunableModule],
                layer: int) -> Dict[str, int]:
     """Copy of ``assignment`` with every module of ``layer`` at its full
     drop level, the coarsest point of every per-layer grid. The pruned
-    runtime runs such a layer as an identity block."""
+    runtime runs such a layer as an identity block, plus a GELU FFN's
+    output bias."""
     a = dict(assignment)
     for m in mods:
         if m.layer == layer:

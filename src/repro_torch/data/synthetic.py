@@ -11,6 +11,8 @@ from typing import Dict, Iterator, List
 import numpy as np
 import torch
 
+from ..models.layers import compute_dtype
+
 
 def _markov_table(vocab: int, seed: int, branch: int = 8) -> np.ndarray:
     """Sparse-ish row-stochastic transition table (vocab, branch) targets."""
@@ -45,9 +47,14 @@ def synthetic_tokens(vocab: int, batch: int, seq: int, *, seed: int = 0,
 
 def make_batch_np(cfg, batch: int, seq: int, *, seed: int = 0,
                   step: int = 0) -> Dict[str, torch.Tensor]:
-    """A token batch (plus masked-LM labels/mask for encoders)."""
-    if cfg.frontend != "none":
-        raise NotImplementedError("frontend inputs are not ported yet")
+    """A token batch (plus masked-LM labels/mask for encoders, and the
+    stub frontend's frame embeddings (B, T, F) in the compute dtype for
+    an audio encoder/decoder, drawn as the reference draws them)."""
+    if cfg.frontend not in ("none", "audio_stub"):
+        raise NotImplementedError(
+            f"frontend {cfg.frontend!r}: only the audio stub's frame "
+            "embeddings are ported (the vision cross-attention model path "
+            "is not)")
     tokens = synthetic_tokens(cfg.vocab_size, batch, seq, seed=seed,
                               step=step)
     b = {"tokens": torch.from_numpy(tokens)}
@@ -59,6 +66,11 @@ def make_batch_np(cfg, batch: int, seq: int, *, seed: int = 0,
         masked[mask] = 0  # [MASK]
         b["tokens"] = torch.from_numpy(masked)
         b["mask"] = torch.from_numpy(mask)
+    if cfg.frontend != "none":
+        rng = np.random.default_rng(seed * 13 + step)
+        b["frontend"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.num_frontend_tokens, cfg.frontend_dim))).to(
+                compute_dtype(cfg))
     return b
 
 

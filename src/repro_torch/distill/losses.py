@@ -56,6 +56,7 @@ def distillation_loss(cfg, params, teacher_params, batch, *, l_task=1.0,
     if teacher_params is not None and (l_logit > 0.0 or l_token > 0.0):
         with torch.no_grad():
             t_out = forward(cfg, teacher_params, batch["tokens"],
+                            frontend_embeds=batch.get("frontend"),
                             collect_hiddens=need_hiddens)
         mask = batch.get("mask")
         if l_logit > 0.0:

@@ -1,7 +1,9 @@
 """Self-attention: grouped-head (GQA/MHA) attention with causal and
 sliding-window masks and RoPE, dense and flash implementations for a
 full sequence, single-token decode against a KV cache, and the ``wo_in``
-capture that feeds the attention unit's Hessian.
+capture that feeds the attention unit's Hessian; and cross-attention
+against an encoder's precomputed keys and values (always dense, as in
+the reference), its output gated by ``tanh(gate)``.
 
 The flash path (``flash_attention_lax`` / ``flash_attention_chunked``)
 goes through the flash-attention kernel's wrapper: the hand-written
@@ -26,7 +28,11 @@ from .layers import apply_rope, dense_init
 NEG_INF = -1e30
 
 
-def attention_init(cfg, generator: torch.Generator, nlayers: int):
+def attention_init(cfg, generator: torch.Generator, nlayers: int,
+                   cross: bool = False):
+    """Stacked projections of ``nlayers`` attention modules; a
+    cross-attention module (``cross``) also gets the ``gate`` leaf (L,),
+    zeros, whose tanh scales its output."""
     d, dh = cfg.d_model, cfg.resolved_head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
     pfx = (nlayers,)
@@ -40,6 +46,8 @@ def attention_init(cfg, generator: torch.Generator, nlayers: int):
         p["bq"] = torch.zeros(pfx + (hq * dh,))
         p["bk"] = torch.zeros(pfx + (hkv * dh,))
         p["bv"] = torch.zeros(pfx + (hkv * dh,))
+    if cross:
+        p["gate"] = torch.zeros(pfx)
     return p
 
 
@@ -198,6 +206,41 @@ def self_attention(cfg, p, x, *, cache=None, cache_pos=None, capture=None):
     if capture is not None:
         capture["wo_in"] = flat
     return flat @ p["wo"].to(x.dtype), new_cache
+
+
+def cross_attention(cfg, p, x, kv, *, capture=None):
+    """Cross-attention of x (B, S, d) against precomputed encoder keys and
+    values ``kv = dict(k=, v=)`` of (B, T, HKV, D) (``cross_kv``; shared
+    by train, prefill and decode): non-causal dense attention, the
+    ``wo_in`` capture, and the output scaled by ``tanh(gate)``."""
+    b, sq, _ = x.shape
+    dt = x.dtype
+    q = x @ p["wq"].to(dt)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+    q = q.reshape(b, sq, cfg.num_heads, cfg.resolved_head_dim)
+    out = dense_attention(q, kv["k"], kv["v"], causal=False)
+    flat = out.reshape(b, sq, -1)
+    if capture is not None:
+        capture["wo_in"] = flat
+    y = flat @ p["wo"].to(dt)
+    if "gate" in p:
+        y = torch.tanh(p["gate"].float()).to(dt) * y
+    return y
+
+
+def cross_kv(cfg, p, kv_x):
+    """Cross-attention keys and values from encoder states kv_x (B, T, d):
+    ``dict(k=, v=)`` of (B, T, HKV, D) in kv_x's dtype."""
+    dt = kv_x.dtype
+    k = kv_x @ p["wk"].to(dt)
+    v = kv_x @ p["wv"].to(dt)
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    b, t, _ = k.shape
+    shape = (b, t, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": k.reshape(shape), "v": v.reshape(shape)}
 
 
 def init_kv_cache(cfg, batch: int, seq_len: int, nlayers: int, dtype,

@@ -23,6 +23,7 @@ def cross_entropy(logits, labels, mask=None):
 def loss_fn(cfg, params, batch, *, collect_hiddens=False):
     """Next-token (decoder) or masked (encoder) LM loss."""
     out = forward(cfg, params, batch["tokens"],
+                  frontend_embeds=batch.get("frontend"),
                   collect_hiddens=collect_hiddens)
     logits = out["logits"]
     dev = logits.device
@@ -53,7 +54,8 @@ def serve_prefill(cfg, params, batch, max_len: Optional[int] = None):
     """
     b, s = batch["tokens"].shape
     max_len = max_len or 2 * s
-    out = forward(cfg, params, batch["tokens"], mode="prefill")
+    out = forward(cfg, params, batch["tokens"],
+                  frontend_embeds=batch.get("frontend"), mode="prefill")
     cache = assemble_prefill_cache(cfg, out, b, s, max_len)
     return out["logits"][:, -1:], cache
 
@@ -75,6 +77,8 @@ def assemble_prefill_cache(cfg, out, batch: int, s: int, max_len: int):
             cache["attn"]["v"][:, :, :n] = pre["v"]
     if "cache_ssm" in out:  # the SSD state and conv tails after the prompt
         cache["ssm"] = out["cache_ssm"]
+    if "cross_kv" in out:  # the decoder layers' keys/values of the encoder
+        cache["cross"] = out["cross_kv"]
     cache["pos"].fill_(s)
     return cache
 
@@ -101,7 +105,7 @@ def sample_token(logits, generator: Optional[torch.Generator] = None, *,
     return (scaled - noise.log()).argmax(dim=-1)
 
 
-def generate(cfg, params, prompt, steps: int, *,
+def generate(cfg, params, prompt, steps: int, *, frontend=None,
              generator: Optional[torch.Generator] = None,
              temperature: float = 1.0, top_k: int = 0,
              max_len: Optional[int] = None) -> torch.Tensor:
@@ -109,7 +113,9 @@ def generate(cfg, params, prompt, steps: int, *,
     (B, steps) tokens on the params' device.
 
     Greedy without a generator; temperature/top-k sampling with one
-    (deterministic in its seed). The KV cache is sized ``prompt_len +
+    (deterministic in its seed). An encoder/decoder model takes the
+    prompts' ``frontend`` frame embeddings (B, T, F); the prefill keeps
+    the encoder's cross-attention keys and values in the cache. The KV cache is sized ``prompt_len +
     steps`` by default; an explicit smaller ``max_len`` raises instead of
     clamping the cache's write index.
     """
@@ -123,8 +129,10 @@ def generate(cfg, params, prompt, steps: int, *,
             "would overwrite the last cache slot and corrupt output")
     kw = {"temperature": temperature, "top_k": top_k}
     with torch.no_grad():
-        logits, cache = serve_prefill(cfg, params, {"tokens": prompt},
-                                      max_len=max_len)
+        batch = {"tokens": prompt}
+        if frontend is not None:
+            batch["frontend"] = frontend
+        logits, cache = serve_prefill(cfg, params, batch, max_len=max_len)
         tok = sample_token(logits, generator, **kw)
         outs = [tok]
         for _ in range(steps - 1):

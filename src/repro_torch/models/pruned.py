@@ -27,6 +27,19 @@ from .ssm import ssm_apply
 from .transformer import check_supported, init_cache
 
 
+def refuse_encoder_decoder(cfg, what: str) -> None:
+    """Raise for an encoder/decoder config: a shrunk model keeps the
+    decoder's self-attention and FFN only, so it would run without the
+    encoder and the cross-attention (the reference's shrunk model drops
+    them and its ``forward_pruned`` ignores the frames)."""
+    if cfg.encoder_decoder:
+        raise NotImplementedError(
+            f"{what}: {cfg.name} is an encoder/decoder model, and the "
+            "pruned runtime has no encoder and no cross-attention; a "
+            "shrunk model would silently lose both (prune it with "
+            "oneshot_prune and use the stitched params)")
+
+
 @dataclass
 class PrunedLayer:
     kv_groups: int = 0        # attention KV groups remaining (0 = dropped)
@@ -100,13 +113,17 @@ def _moe_forward(cfg, lp, x):
 
 
 def _ffn_block(cfg, lcfg: PrunedLayer, x):
-    """The layer's FFN or MoE residual branch, if any of it is left."""
+    """The layer's FFN or MoE residual branch, if any of it is left. A
+    GELU FFN with every row removed still adds its output bias ``bd``,
+    as the masked model does (its zeroed ``wd`` rows leave ``y = bd``)."""
     if lcfg.expert_ff:
         h2 = apply_norm(cfg, lcfg.params["ln2"], x)
         x = x + _moe_forward(cfg, lcfg.params["moe"], h2)
     elif lcfg.d_ff > 0 and "ffn" in lcfg.params:
         h2 = apply_norm(cfg, lcfg.params["ln2"], x)
         x = x + ffn_apply(cfg, lcfg.params["ffn"], h2)
+    elif "ffn" in lcfg.params:
+        x = x + lcfg.params["ffn"]["bd"].to(x.dtype)
     return x
 
 
@@ -122,8 +139,9 @@ def forward_pruned(pm: PrunedModel, tokens) -> torch.Tensor:
     residual takes ``0.5 * (attn + ssm)`` with both branches live and
     ``0.5 * live`` with one dropped, as the dense block averages them (the
     reference's ``forward_pruned``); raises for a family the port does
-    not run."""
+    not run, and for an encoder/decoder model."""
     cfg = pm.cfg
+    refuse_encoder_decoder(cfg, "forward_pruned")
     check_supported(cfg)
     tokens = tokens.to(pm.globals_["embed"]["table"].device)
     x = embed_tokens(cfg, pm.globals_["embed"], tokens)

@@ -1,14 +1,17 @@
 """Transformer stack: init, full-sequence forward (train / prefill) and
 single-token decode for dense self-attention models (GPT-2/BERT/llama-style
 blocks), mixture-of-experts models (the FFN of every block a
-``models.moe`` layer), Mamba-2 (SSD) stacks and Hymba-style hybrid
+``models.moe`` layer), Mamba-2 (SSD) stacks, Hymba-style hybrid
 stacks (attention and SSD heads side by side on the block's normed
-input, their outputs averaged, then the FFN).
+input, their outputs averaged, then the FFN) and Whisper-style
+encoder/decoder models (a non-causal encoder over the audio stub's frame
+embeddings; each decoder block self-attention, then cross-attention to
+the encoder's output, then the FFN).
 
 Per-layer weights are stacked along a leading layer axis, as in the JAX
 package; the forward and decode are Python loops over layers where the
-reference scans. Cross-attention, encoder/decoder stacks and frontends
-are not ported yet and are rejected up front.
+reference scans. Grouped cross-attention layers over a vision frontend
+(``cross_attn_every``) are not ported yet and are rejected up front.
 """
 from __future__ import annotations
 
@@ -34,23 +37,35 @@ def check_supported(cfg) -> None:
             cfg.ssm_state and not (ssm or cfg.hybrid),
         "family='ssm' without ssm_state": ssm and not cfg.ssm_state,
         "hybrid without ssm_state": cfg.hybrid and not cfg.ssm_state,
-        "encoder_decoder": cfg.encoder_decoder,
+        "encoder_decoder without the audio_stub frontend":
+            cfg.encoder_decoder and cfg.frontend != "audio_stub",
+        "encoder_decoder with experts or SSD heads":
+            cfg.encoder_decoder and bool(cfg.num_experts or cfg.ssm_state),
         "cross_attn_every": cfg.cross_attn_every,
         "attention='none'": cfg.attention == "none" and not ssm,
-        "frontend": cfg.frontend != "none",
+        "a frontend without encoder_decoder":
+            cfg.frontend != "none" and not cfg.encoder_decoder,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: the port runs dense and MoE self-attention, "
-            f"Mamba-2 and hybrid attention + SSD stacks only (not ported "
-            f"yet: {', '.join(bad)})")
+            f"Mamba-2, hybrid attention + SSD and audio encoder/decoder "
+            f"stacks only (not ported yet: {', '.join(bad)})")
 
 
 def block_kind(cfg) -> str:
     if cfg.family == "ssm":
         return "ssm"
-    return "hybrid" if cfg.hybrid else "self"
+    if cfg.hybrid:
+        return "hybrid"
+    return "decoder" if cfg.encoder_decoder else "self"
+
+
+def _encoder_cfg(cfg):
+    """The encoder's view of an encoder/decoder config: bidirectional,
+    full attention."""
+    return cfg.replace(causal=False, attention="full")
 
 
 def model_init(cfg, generator: Optional[torch.Generator] = None,
@@ -77,6 +92,9 @@ def model_init(cfg, generator: Optional[torch.Generator] = None,
             layers["ffn"] = ffn_mod.ffn_init(cfg, g, L)
         if kind == "hybrid":  # drawn last, as the reference's _block_init
             layers["ssm"] = ssm_mod.ssm_init(cfg, g, L)
+        if kind == "decoder":
+            layers["lnx"] = norm_init(cfg, L)
+            layers["xattn"] = attn_mod.attention_init(cfg, g, L, cross=True)
     params: Dict[str, Any] = {
         "embed": embed,
         "layers": layers,
@@ -85,6 +103,15 @@ def model_init(cfg, generator: Optional[torch.Generator] = None,
                  {"w": dense_init((cfg.vocab_size, cfg.d_model), g,
                                   in_axis=-1)}),
     }
+    if kind == "decoder":
+        enc, n = _encoder_cfg(cfg), cfg.num_encoder_layers
+        params["enc_layers"] = {"ln1": norm_init(enc, n),
+                                "attn": attn_mod.attention_init(enc, g, n),
+                                "ln2": norm_init(enc, n),
+                                "ffn": ffn_mod.ffn_init(enc, g, n)}
+        params["enc_norm"] = norm_init(cfg)
+        params["enc_pos"] = dense_init(
+            (cfg.num_frontend_tokens, cfg.d_model), g, in_axis=-1)
     return tree_to(params, dev)
 
 
@@ -156,6 +183,41 @@ def _ssm_block(cfg, lp, x, *, build_cache: bool, capture: bool):
     return x + y, None, None, cache, caps
 
 
+def _decoder_block(cfg, lp, x, kv, *, build_cache: bool, capture: bool):
+    """One encoder/decoder decoder block: self-attention, then ``lnx`` and
+    cross-attention to the encoder's keys and values ``kv`` (this
+    layer's ``cross_kv``), then the FFN. Returns (x, None, cache_kv,
+    None, captures ``attn``/``xattn``/``ffn``)."""
+    cap_a = {} if capture else None
+    cap_x = {} if capture else None
+    cap_f = {} if capture else None
+    h = apply_norm(cfg, lp["ln1"], x)
+    a, self_kv = attn_mod.self_attention(cfg, lp["attn"], h, capture=cap_a)
+    x = x + a
+    hx = apply_norm(cfg, lp["lnx"], x)
+    x = x + attn_mod.cross_attention(cfg, lp["xattn"], hx, kv,
+                                     capture=cap_x)
+    h2 = apply_norm(cfg, lp["ln2"], x)
+    x = x + ffn_mod.ffn_apply(cfg, lp["ffn"], h2, capture=cap_f)
+    cache_kv = (self_kv["k"], self_kv["v"]) if build_cache else None
+    caps = {"attn": cap_a, "xattn": cap_x, "ffn": cap_f} if capture else {}
+    return x, None, cache_kv, None, caps
+
+
+def encoder_forward(cfg, params, frontend_embeds):
+    """The Whisper-style encoder over the frontend's frame embeddings
+    (B, T, d): learned positions, ``num_encoder_layers`` bidirectional
+    self-attention blocks, then ``enc_norm``. Returns (B, T, d) in the
+    compute dtype."""
+    enc = _encoder_cfg(cfg)
+    x = frontend_embeds.to(compute_dtype(cfg))
+    x = x + params["enc_pos"][None, :x.shape[1]].to(x.dtype)
+    for i in range(cfg.num_encoder_layers):
+        x = _self_block(enc, _layer(params["enc_layers"], i), x,
+                        build_cache=False, capture=False)[0]
+    return apply_norm(cfg, params["enc_norm"], x)
+
+
 def _stack(trees):
     """Per-layer trees (nested dicts of tensors) -> one tree of stacked
     tensors with a leading layer axis."""
@@ -164,8 +226,9 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def forward(cfg, params, tokens: torch.Tensor, *, mode: str = "train",
-            capture: bool = False, collect_hiddens: bool = False):
+def forward(cfg, params, tokens: torch.Tensor, *, frontend_embeds=None,
+            mode: str = "train", capture: bool = False,
+            collect_hiddens: bool = False):
     """Full-sequence forward.
 
     mode: "train" (logits over all positions) or "prefill" (also returns
@@ -183,18 +246,43 @@ def forward(cfg, params, tokens: torch.Tensor, *, mode: str = "train",
     ``hiddens`` is each layer's output stacked to (L, B, S, d), as the
     reference's ``_scan_stack`` collects them (token distillation reads
     them).
+
+    An encoder/decoder model takes ``frontend_embeds`` (B, T, F), runs
+    the encoder over them, and also returns ``encoder_out`` (B, T, d)
+    and ``cross_kv``, each decoder layer's cross-attention keys and
+    values stacked to (L, B, T, HKV, D) (a prefill's decode cache keeps
+    them as ``cache["cross"]``); its captures are ``attn``, ``xattn``
+    and ``ffn``, of the decoder layers only.
     """
     check_supported(cfg)
     build_cache = mode == "prefill"
     dev = params["embed"]["table"].device
     tokens = tokens.to(dev)
     x = embed_tokens(cfg, params["embed"], tokens)
-    block = _ssm_block if block_kind(cfg) == "ssm" else _self_block
+    kind = block_kind(cfg)
+    out: Dict[str, Any] = {}
+    if kind == "decoder":
+        if frontend_embeds is None:
+            raise ValueError(f"{cfg.name}: an encoder/decoder forward needs "
+                             "frontend_embeds")
+        enc_out = encoder_forward(cfg, params, frontend_embeds.to(dev))
+        xattn = params["layers"]["xattn"]
+        cross = _stack([attn_mod.cross_kv(
+            cfg, {k: t[i] for k, t in xattn.items()}, enc_out)
+            for i in range(cfg.num_layers)])
+        out.update(encoder_out=enc_out, cross_kv=cross)
+    block = _ssm_block if kind == "ssm" else _self_block
     caps, kv_caches, ssm_caches, auxes, hiddens = [], [], [], [], []
     for i in range(cfg.num_layers):
-        x, aux, c_kv, c_ssm, c = block(cfg, _layer(params["layers"], i), x,
-                                       build_cache=build_cache,
-                                       capture=capture)
+        lp = _layer(params["layers"], i)
+        if kind == "decoder":
+            x, aux, c_kv, c_ssm, c = _decoder_block(
+                cfg, lp, x, {k: t[i] for k, t in cross.items()},
+                build_cache=build_cache, capture=capture)
+        else:
+            x, aux, c_kv, c_ssm, c = block(cfg, lp, x,
+                                           build_cache=build_cache,
+                                           capture=capture)
         caps.append(c)
         kv_caches.append(c_kv)
         ssm_caches.append(c_ssm)
@@ -203,9 +291,10 @@ def forward(cfg, params, tokens: torch.Tensor, *, mode: str = "train",
         if collect_hiddens:
             hiddens.append(x)
     x = apply_norm(cfg, params["final_norm"], x)
-    out = {"logits": unembed(cfg, params["embed"], params.get("head", {}), x),
-           "aux": (torch.stack(auxes).mean() if auxes
-                   else torch.zeros((), device=dev))}
+    out.update(logits=unembed(cfg, params["embed"], params.get("head", {}),
+                              x),
+               aux=(torch.stack(auxes).mean() if auxes
+                    else torch.zeros((), device=dev)))
     if collect_hiddens:
         out["hiddens"] = torch.stack(hiddens)
     if capture:
@@ -248,7 +337,10 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=None, *, kv_heads=None,
     ``per_slot=True`` gives a per-slot position vector ``pos: (B,)``
     (continuous batching) instead of the scalar lockstep position. An SSM
     stack's cache is ``ssm = {state, conv_x, conv_bc}`` stacked over
-    layers instead of k/v buffers; a hybrid stack's holds both.
+    layers instead of k/v buffers; a hybrid stack's holds both. An
+    encoder/decoder stack's also holds ``cross = {k, v}`` of (L, B, T,
+    HKV, D), the decoder layers' cross-attention keys and values (zeros
+    here; a prefill fills them).
     """
     check_supported(cfg)
     dev = resolve_device(device)
@@ -275,6 +367,11 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=None, *, kv_heads=None,
     else:
         cache["attn"] = attn_mod.init_kv_cache(cfg, batch, seq_len,
                                                cfg.num_layers, dtype, dev)
+    if kind == "decoder":
+        shape = (cfg.num_layers, batch, cfg.num_frontend_tokens,
+                 cfg.num_kv_heads, cfg.resolved_head_dim)
+        cache["cross"] = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                          "v": torch.zeros(shape, dtype=dtype, device=dev)}
     return cache
 
 
@@ -299,7 +396,7 @@ def decode_step(cfg, params, cache, tokens):
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
         h = apply_norm(cfg, lp["ln1"], x)
-        if kind != "self":  # the layer's views of the stacked SSM cache
+        if kind in ("ssm", "hybrid"):  # the layer's views of the SSM cache
             m, _ = ssm_mod.ssm_decode_step(
                 cfg, lp["ssm"], h, {k: v[i] for k, v in cache["ssm"].items()})
         if kind == "ssm":
@@ -311,6 +408,11 @@ def decode_step(cfg, params, cache, tokens):
         if kind == "hybrid":
             a = 0.5 * (a + m)
         x = x + a
+        if kind == "decoder":  # against the prefill's encoder keys/values
+            hx = apply_norm(cfg, lp["lnx"], x)
+            x = x + attn_mod.cross_attention(
+                cfg, lp["xattn"], hx,
+                {k: t[i] for k, t in cache["cross"].items()})
         h2 = apply_norm(cfg, lp["ln2"], x)
         x = x + _ffn_or_moe(cfg, lp, h2)[0]
     x = apply_norm(cfg, params["final_norm"], x)

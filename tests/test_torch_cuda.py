@@ -23,10 +23,12 @@ step's gradients card against CPU 2e-2 of each gradient's scale (the
 loss 1e-3 relative). The train step on the card against the CPU: each
 metric 1e-3 relative (ROADMAP's loss tolerance), masked rows exactly 0;
 a killed and resumed run on the card bit for bit against an
-uninterrupted one.
+uninterrupted one. The measured latency table's entries within 20% of
+the profiler's device time a call of their modules.
 """
 import json
 import os
+import warnings
 
 # the train step runs under deterministic algorithms, which on CUDA need
 # this set before the first cuBLAS call
@@ -895,3 +897,77 @@ def test_family_killed_and_resumed_on_the_card_is_bit_identical(
     assert [(e["target"], e["stage"]) for e in executed if e["run"] == 2] \
         == [("2", "finetune")]
     assert not torch.are_deterministic_algorithms_enabled()
+
+
+def _device_ms(fn, args, calls: int = 10, traces: int = 3) -> float:
+    """Device milliseconds a call of ``fn(*args)``: the summed self time of
+    the card's own activities (kernels, copies) in a ``torch.profiler``
+    trace of ``calls`` calls, after 3 untimed ones. Every module timed
+    here launches GEMMs, so a trace without device activity (the
+    profiler dropped its events, seen once in a few hundred traces) is
+    taken again, at most ``traces`` times in all, with a warning for each
+    empty trace so that a profiler that drops events often stays seen."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn(*args)
+    torch.cuda.synchronize()
+    for k in range(traces):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(*args)
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total", 0)
+                 for e in prof.key_averages()
+                 if str(e.device_type).endswith("CUDA"))
+        if us > 0:
+            return us / 1e3 / calls
+        warnings.warn(f"profiler trace {k + 1} of {traces} held no device "
+                      f"activity for {calls} calls of {fn!r}")
+    raise AssertionError(f"{traces} profiler traces held no device activity")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gpt2-small", "hymba-1.5b"])
+def test_measured_table_prices_modules_by_their_device_time(cuda_device,
+                                                            arch):
+    """The measured table (16 x 128 prefill, the config's compute type)
+    times the card, not the host's launches: attention at one KV group
+    costs at most half the dense attention (the profiler's device times
+    give 0.30 for GPT-2 small and 0.36 for Hymba), and every entry is
+    within 20% of the profiler's device time a call of its module."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import latency
+    from repro_torch.core.structures import UNITS
+    from repro_torch.models.layers import compute_dtype
+
+    cfg = get_config(arch)
+    env = InferenceEnv(batch=16, seq=128, mode="prefill", hw=None)
+    kw = {"reps": 50, "warmup": 5}
+    table = latency.build_table(cfg, env, "measure", device=cuda_device,
+                                **kw)
+    dt, gen = compute_dtype(cfg), torch.Generator().manual_seed(0)
+
+    def module(spec):
+        if spec["module"] == "attn":
+            return latency._attn_timing_module(cfg, env, spec["groups"], gen,
+                                               dt, cuda_device)
+        return latency._ffn_timing_module(cfg, spec["tokens"],
+                                          spec["f_live"], gen, dt,
+                                          cuda_device)
+
+    with torch.no_grad():
+        fn, args = module({"module": "attn", "groups": 1})
+        one = latency._time_fn(fn, *args, dev=cuda_device, **kw)
+        assert one <= 0.5 * table.module_time("attn", 0), (
+            one, table.module_time("attn", 0))
+        for kind, grid in table.grids.items():
+            for removed, secs in zip(grid, table.times[kind]):
+                spec = UNITS[kind].timing_spec(cfg, env, int(removed))
+                if spec is None:
+                    assert secs == 0.0
+                    continue
+                fn, args = module(spec)
+                device = _device_ms(fn, args)
+                assert abs(secs * 1e3 - device) <= 0.2 * device, (
+                    kind, int(removed), secs * 1e3, device)

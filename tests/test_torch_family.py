@@ -356,8 +356,13 @@ def test_family_matches_the_reference(ref_family, uninterrupted):
         for r, p in zip(ref_leaves, port_leaves):
             np.testing.assert_allclose(p.numpy(), np.asarray(r), rtol=0,
                                        atol=1e-5)
-        # the shrunk members keep the same structures
-        assert vg.pruned.num_params() == vw.pruned.num_params()
+        # the shrunk members keep the same structures; an FFN dropped
+        # whole keeps its output bias in the port (the reference's shrink
+        # drops it), d_model parameters each
+        emptied = sum(1 for l in vg.pruned.layers
+                      if l.d_ff == 0 and "ffn" in l.params)
+        assert vg.pruned.num_params() == (vw.pruned.num_params()
+                                          + emptied * vg.pruned.cfg.d_model)
 
 
 def _keys(node):
@@ -412,20 +417,20 @@ def test_variant_is_the_shrunk_finetuned_model(cfg, calib, uninterrupted):
     """A variant's ``pruned`` model is shrunk from its finetuned params
     (the reference's takes the out-side matrices from the database's
     pre-finetune snapshots). The masks pin the removed rows only, so the
-    finetune also trains the out-side bias of an FFN it drops whole,
-    which the shrunk model leaves out with the module, as the reference's
-    does: without those biases the two give the same logits."""
+    finetune also trains the out-side bias of an FFN it drops whole; the
+    shrunk model keeps that bias (the reference's drops it with the
+    module), so the two give the same logits."""
     tokens = calib[0]["tokens"]
     mods = {m.name: m for m in registry(cfg)}
     dropped = 0
     for v in uninterrupted[1]:
-        p = tree_map(lambda t: t.clone(), v.params)
         for name, removed in v.assignment.items():
             if mods[name].kind == "ffn" and removed == mods[name].n_structures:
-                p["layers"]["ffn"]["bd"][mods[name].layer] = 0.0
+                assert float(v.params["layers"]["ffn"]["bd"][
+                    mods[name].layer].abs().max()) > 0
                 dropped += 1
         with torch.no_grad():
-            want = forward(cfg, p, tokens)["logits"]
+            want = forward(cfg, v.params, tokens)["logits"]
             got = forward_pruned(v.pruned, tokens)
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     assert dropped  # this family drops an FFN whole, so the case is seen

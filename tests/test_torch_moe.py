@@ -172,9 +172,15 @@ def test_config_and_smoke_forward_match_reference(arch):
         [dataclasses.asdict(s) for s in ref_shapes_for(arch)]
     params = ref_model_init(ref_smoke, jax.random.key(0))[0]
     tokens = np.random.default_rng(1).integers(0, smoke.vocab_size, (2, 40))
+    frames = None  # an encoder/decoder's frame embeddings
+    if smoke.encoder_decoder:
+        frames = np.random.default_rng(2).standard_normal(
+            (2, smoke.num_frontend_tokens, smoke.frontend_dim)).astype(
+                np.float32)
     got = forward(smoke, params_from_numpy(_np(params), device="cpu"),
-                  torch.from_numpy(tokens))
-    want = ref_forward(ref_smoke, params, tokens)
+                  torch.from_numpy(tokens), frontend_embeds=(
+                      None if frames is None else torch.from_numpy(frames)))
+    want = ref_forward(ref_smoke, params, tokens, frontend_embeds=frames)
     np.testing.assert_allclose(got["logits"].numpy(),
                                np.asarray(want["logits"]), atol=1e-4,
                                rtol=1e-4)
@@ -211,7 +217,8 @@ def test_smoke_model_sizes_match_the_reference_bench(arch, kw, count):
 def test_every_registry_config_runs_the_one_shot_path(arch):
     """``ARCHS`` holds the configs the port runs: each smoke config goes
     through ``oneshot_prune`` (costmodel table), meets its target, and
-    shrinks to a model with finite logits."""
+    shrinks to a model with finite logits; an encoder/decoder model,
+    which ``shrink`` refuses, gives finite logits stitched."""
     cfg = configs.smoke_config(arch).replace(dtype="float32")
     params = model_init(cfg, device="cpu")
     calib = calibration_batches(cfg, 4, 32, batch=4)
@@ -220,6 +227,13 @@ def test_every_registry_config_runs_the_one_shot_path(arch):
                         device="cpu")
     v = res.variants[1.5]
     assert v.speedup >= 1.5 and np.isfinite(v.calib_loss)
+    if cfg.encoder_decoder:
+        with pytest.raises(NotImplementedError, match="encoder/decoder"):
+            shrink(cfg, v.params, res.db, v.assignment, device="cpu")
+        assert torch.isfinite(forward(
+            cfg, v.params, calib[0]["tokens"],
+            frontend_embeds=calib[0]["frontend"])["logits"]).all()
+        return
     pm = shrink(cfg, v.params, res.db, v.assignment, device="cpu")
     assert torch.isfinite(forward_pruned(pm, calib[0]["tokens"])).all()
 

@@ -6,7 +6,10 @@ in fp32 with the reference's weights carried over by the weight bridge:
   parameter counts, the device-side ``shrink_from_stitched`` equal to
   ``shrink``, shrunk outputs against the masked model (2e-2, the
   reference's tests/test_shrink.py tolerance) and against the
-  reference's pruned forward (1e-4: fp32 sums in different orders);
+  reference's pruned forward (1e-4: fp32 sums in different orders); an
+  emptied GELU FFN's output bias, which the reference's shrink drops,
+  kept (the only leaf the port adds), so that with a nonzero bias the
+  shrunk model still gives the masked model's logits (1e-4);
 * decode: one step with scalar and per-slot positions against the
   reference's (1e-4), greedy ``generate`` token for token with dense and
   flash attention, sampling seeded by a ``torch.Generator``;
@@ -188,12 +191,20 @@ def test_shrink_matches_reference(kind, tiny, ref_params, ref_db):
     a = _assignment(kind)
     want = ref_shrink(REF_TINY, ref_params["gpt2"], ref_db, a)
     got = shrink(cfg, params, db, a, device="cpu")
-    assert got.num_params() == want.num_params()
+    # an emptied GELU FFN keeps its output bias, which the reference's
+    # shrink drops: the only leaf the port's shrunk model adds
+    emptied = [l for l, lg in enumerate(got.layers) if lg.d_ff == 0]
+    assert got.num_params() == want.num_params() + cfg.d_model * len(emptied)
     assert got.num_params() < sum(t.numel() for _, t in _leaves(params))
-    for lg, lw in zip(got.layers, want.layers):
+    for l, (lg, lw) in enumerate(zip(got.layers, want.layers)):
         assert (lg.kv_groups, lg.d_ff) == (lw.kv_groups, lw.d_ff)
         g, w = _leaves(lg.params), _leaves(jax.tree.map(np.asarray,
                                                        lw.params))
+        if l in emptied:
+            assert [p for p, _ in g if p.startswith("ffn")] == ["ffn/bd/"]
+            assert torch.equal(lg.params["ffn"]["bd"],
+                               params["layers"]["ffn"]["bd"][l])
+            g = [(p, t) for p, t in g if p != "ffn/bd/"]
         assert [p for p, _ in g] == [p for p, _ in w]
         for (path, tg), (_, tw) in zip(g, w):
             np.testing.assert_array_equal(tg.numpy(), tw, err_msg=path)
@@ -212,6 +223,41 @@ def test_shrunk_outputs_match_masked(kind, tiny):
     got = forward_pruned(pm, tokens)
     masked_logits = forward(cfg, masked, tokens)["logits"]
     assert float((got - masked_logits).abs().max()) < 2e-2
+
+
+@pytest.mark.parametrize("kind", ["ffn_drop", "layer_drop"])
+def test_emptied_ffn_keeps_its_output_bias(kind, tiny):
+    """A GELU FFN with every row removed still adds its output bias in the
+    masked model (its zeroed wd rows leave y = bd), and a finetune makes
+    that bias nonzero: the shrunk model, from ``shrink`` and from
+    ``shrink_from_stitched``, gives the masked model's logits (1e-4, fp32)
+    in its forward, its prefill and each decode step."""
+    cfg, params, db = tiny
+    a = ({"L0.attn": 1, "L1.attn": 0, "L0.ffn": cfg.d_ff, "L1.ffn": 40}
+         if kind == "ffn_drop" else _assignment("layer_drop"))
+    rng = np.random.default_rng(7)
+    moved = {**params, "layers": {
+        **params["layers"], "ffn": {
+            **params["layers"]["ffn"],
+            "bd": torch.from_numpy(rng.standard_normal(
+                tuple(params["layers"]["ffn"]["bd"].shape)).astype(
+                    np.float32))}}}
+    masked = apply_assignment(cfg, moved, db, a)
+    stitched = SnapshotCache(cfg, db, device="cpu").apply(moved, a)
+    tokens = torch.from_numpy(_prompts(cfg, 2, 24, seed=4))
+    want = forward(cfg, masked, tokens)["logits"]
+    for pm in (shrink(cfg, masked, db, a, device="cpu"),
+               shrink_from_stitched(cfg, stitched, db, a)):
+        assert any(l.d_ff == 0 and "ffn" in l.params for l in pm.layers)
+        np.testing.assert_allclose(forward_pruned(pm, tokens).numpy(),
+                                   want.numpy(), atol=1e-4, rtol=1e-4)
+        s = 16
+        logits, cache = prefill_pruned(pm, tokens[:, :s], MAX_LEN)
+        for t in range(s, tokens.shape[1]):
+            np.testing.assert_allclose(logits[:, 0].numpy(),
+                                       want[:, t - 1].numpy(), atol=1e-4,
+                                       rtol=1e-4)
+            logits, cache = decode_step_pruned(pm, cache, tokens[:, t:t + 1])
 
 
 def test_shrunk_outputs_match_reference(tiny, ref_params, ref_db):

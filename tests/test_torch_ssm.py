@@ -326,7 +326,7 @@ def test_unsupported_families_still_raise():
     with pytest.raises(NotImplementedError, match="hybrid in the ssm family"):
         check_supported(CFG.replace(hybrid=True))
     for kw in ({"num_experts": 4},
-               {"encoder_decoder": True}, {"frontend": "vision_stub"},
+               {"cross_attn_every": 5}, {"frontend": "vision_stub"},
                {"family": "dense"}, {"ssm_state": 0}):
         with pytest.raises(NotImplementedError):
             check_supported(CFG.replace(**kw))
