@@ -36,16 +36,25 @@ Phases (any failure exits non-zero and prints no result):
    over bf16 X at Whisper's D = 1280 and 5120 (N = 4096, with an
    accumulator; timed beside ``torch.addmm`` with ``out_dtype``) and
    obs_downdate over its decoder's (4, 5120, 1280) FFN stack (checked,
-   timed);
+   timed); and phase 15's: hessian_accum at Llama-3.2-Vision's D = 4096
+   and 14336 (N = 4096 with an accumulator, fp32 as the path feeds it
+   and bf16 beside ``addmm`` with ``out_dtype``) and obs_downdate over
+   its (5, 14336, 4096) gs-1 FFN stack and (5, 4096, 4096) gs-512
+   attention stack (checked, timed);
 3. check the slices on small models: the card's run (kernels) against the
    CPU run (plain versions) on the same weights and Hessians, a 2-layer
-   model's prefill logits and served tokens, a 2-layer Mamba-2's
+   model's prefill logits and served tokens, ``runtime.device.to_host``
+   (the databases' and checkpoints' staged copy to host memory) equal to
+   ``.cpu()`` bit for bit at the edges of its chunks, a 2-layer Mamba-2's
    logits, Hessians, database errors, greedy tokens and one train step's
    loss and gradients (the SSD forward and backward kernels), the same
    for the reference's smoke Hymba (2 layers, attention and SSD heads
    side by side), the reference's smoke Whisper (2 encoder and 2
    decoder layers, its cross-attention gates opened: logits, Hessians,
-   database orders, greedy tokens through the cross cache), and the
+   database orders, greedy tokens through the cross cache), the same for
+   the reference's smoke Llama-3.2-Vision (2 self layers and 1 cross
+   group) and a variant with two cross groups and ``frontend_proj``
+   (frames of 96), and the
    reference's smoke Phi-3.5-MoE (2 layers, 4 experts top-2) in both MoE
    prune modes: logits, Hessians, database errors, member losses and
    served tokens; and 5 steps of ``make_train_step`` on the small GPT-2
@@ -72,7 +81,7 @@ Phases (any failure exits non-zero and prints no result):
    1024) stood up by a ``FamilyServer`` from the stock config (the
    engines prefill through the flash-attention kernel whatever
    ``attn_impl`` says); shrink and stitched-model checks, then every
-   member serves one seeded stream (64 requests, 8 slots, prompts of
+   member serves one seeded stream (32 requests, 8 slots, prompts of
    128-768 tokens, 16-64 generated tokens, 50 req/s) and the routed
    stream runs through ``FamilyServer.run``, with the launch counts
    zeroed just before and read just after; engine tokens against
@@ -96,12 +105,15 @@ Phases (any failure exits non-zero and prints no result):
    repro_torch.launch.train --arch gpt2-small --steps 10 --batch 8 --seq
    512``) must exit 0. Prints the median step time, tokens/s, peak
    memory, the checkpoint's bytes and its save and restore seconds;
-9. (run right after phase 8, on phase 4's dense model and calibration)
-   the gradual family engine: ``gradual_prune`` for targets 1.5x and 2x,
+9. (run right after phase 8, on the first 4 layers of phase 4's dense
+   model and its calibration) the gradual family engine:
+   ``gradual_prune`` for targets 1.5x and 2x,
    each target calibrated again, its database built, searched (16
    candidates, population 8, scored by loss), finetuned 16 steps of 8 x
-   512 with the reference's gradual defaults and checkpoints every 8
-   steps, and exported on a background thread (``overlap=True``); priced
+   512 with the reference's gradual defaults and a checkpoint at step 8
+   (``keep_checkpoints=False``: none at a finetune's end, and each
+   target's removed once its finetune has returned), and exported on a
+   background thread (``overlap=True``); priced
    by the cost model on the H100 data sheet's rates (a measured table is
    not the same in two builds, so a resume would search against another
    one). Run A goes through, with the launch counts zeroed just before
@@ -117,7 +129,7 @@ Phases (any failure exits non-zero and prints no result):
    kind and the peak device memory;
 6. the Mamba-2 slice: ``oneshot_prune`` on Mamba-2 2.7B at full width
    (d_model 2560, 80 SSD heads x 64, state 128, chunk 128, vocab 50280)
-   with 8 of its 64 layers, seeded weights, the same calibration, table
+   with 6 of its 64 layers, seeded weights, the same calibration, table
    and search as phase 4 and targets 1.25x/1.5x/2x, with the launch
    counts zeroed just before and read just after (the SSD kernel,
    hessian_accum and obs_downdate must each have launched); the
@@ -130,7 +142,8 @@ Phases (any failure exits non-zero and prints no result):
    weights, targets 1.15x and 1.3x (the cost-model table's dense split is
    printed first: at 1 layer the logits head is most of it), phase 9's
    search, gradual defaults, cost-model table and batches, 8 finetune
-   steps a target with checkpoints every 4, ``overlap=True``. Run A goes
+   steps a target with a checkpoint at step 4 (``keep_checkpoints=False``
+   as in phase 9), ``overlap=True``. Run A goes
    through, with the launch counts zeroed just before and read just after
    (the SSD forward and backward kernels, hessian_accum and obs_downdate
    must each have launched; JSON ``ssm_family_launches``); a train step
@@ -150,7 +163,7 @@ Phases (any failure exits non-zero and prints no result):
    mode (each expert kept or dropped whole), targets 1.25x/1.5x/2x. Each
    mode's members are shrunk (``shrink`` == ``shrink_from_stitched``)
    and run against their stitched models, and a ``FamilyServer`` serves a
-   seeded stream (16 requests, 8 slots, prompts of 128-512 tokens, 16-32
+   seeded stream (8 requests, 8 slots, prompts of 128-512 tokens, 16-32
    generated tokens) through every member with flash prefill; engine
    tokens against per-request decoding in fp32; last the dense model
    generates. The launch counts are zeroed before the calibration and
@@ -162,10 +175,10 @@ Phases (any failure exits non-zero and prints no result):
    gradual ZipLM on Phi-3.5-MoE in expert mode: ``gradual_prune`` to
    1.3x and 1.6x on the cost-model table of phases 9 and 10 (its share
    that no unit can remove, and the ceiling it implies, printed first),
-   4 finetune steps a target of 8 x 512 with the gradual defaults,
-   checkpoints every 4 (each target's removed once its finetune has
-   returned, ``keep_checkpoints=False``: the card's machine caps a call's
-   disk writes at 45 GiB), search 16 candidates in populations of 8,
+   4 finetune steps a target of 8 x 512 with the gradual defaults and
+   no checkpoint (``keep_checkpoints=False`` writes none at a finetune's
+   last step, and every 4 steps is that step), search 16 candidates in
+   populations of 8,
    ``overlap=True``; the launch counts zeroed just before and read just
    after (hessian_accum must have launched, flash_attention must not:
    attention is dense at 512 tokens; JSON ``moe_family_launches``). Every
@@ -199,7 +212,7 @@ Phases (any failure exits non-zero and prints no result):
    ``hybrid_launches``).
 14. the encoder/decoder slice: ``oneshot_prune`` on Whisper-large-v3 at
    full width (d_model 1280, 20 heads of 64, d_ff 5120, vocab 51866
-   tied; the encoder at all 32 layers over (8, 1500, 1280) frame
+   tied; the encoder at 8 of its 32 layers over (8, 1500, 1280) frame
    embeddings, 4 of the 32 decoder layers), seeded weights with the
    cross-attention gates drawn so that their tanh lies in [0.5, 0.9],
    phase 4's calibration (each batch with its frames), measured table
@@ -213,6 +226,18 @@ Phases (any failure exits non-zero and prints no result):
    and the top member; hessian_accum and obs_downdate launched (JSON
    ``encdec_launches``). Prints stage seconds, peak, snapshot bytes and
    their round trip, launches and each member's removals.
+15. the grouped cross-attention slice: ``oneshot_prune`` on
+   Llama-3.2-Vision-11B at full width (d_model 4096, 32 heads on 8 KV
+   heads of 128, d_ff 14336, vocab 128256 tied) with one cross group: 5
+   self layers and the cross module after them over (8, 1601, 4096)
+   patch embeddings, seeded weights drawn on the card with the gate drawn
+   so that its tanh lies in [0.5, 0.9], phase 4's calibration (each
+   batch with its frames), measured table and search, targets
+   1.25x/1.5x/2x (the table's ceiling printed and held to 0.95 of
+   ``VLM_CEILING``). Only the self layers' units are pruned and priced;
+   every member keeps the dense cross module. Checks as phase 14's, the
+   decoding through ``generate(frontend=...)`` and the grouped cross
+   cache (JSON ``vlm_launches``).
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 product on the
 card is a full fp32 product and the fp32 tolerances below hold. The train
@@ -242,13 +267,14 @@ PEAK_TF32 = 495e12
 HBM_BYTES_PER_S = 3.35e12
 # the GPT-2 small phases (4, 5, 8 and 9) run 6 of its 12 layers at full
 # width: with phases 11 and 12 added the script took 1302 s of its 1200 s
-# at 12 layers on an NVIDIA H100 80GB HBM3 at 700 W. Phase 6 stays at 8
-# Mamba-2 layers: at 4 its measured table's unprunable share (0.635 of
-# 1.25 ms) puts its 2x target out of reach. The serving and training CLIs
-# of phases 5 and 8 run the whole model. With phase 13 added the script
-# took 1209 s on a host that ran the older phases 16% slower than before,
-# so phase 5 serves 64 requests (not 128) and phase 10 runs 1 Mamba-2
-# layer (not 2)
+# at 12 layers on an NVIDIA H100 80GB HBM3 at 700 W. The serving and
+# training CLIs of phases 5 and 8 run the whole model. With phase 13 added
+# the script took 1209 s on a host that ran the older phases 16% slower
+# than before, so phase 5 served 64 requests (not 128) and phase 10 runs
+# 1 Mamba-2 layer (not 2). With phase 15 added it took 1155 s, so phase 5
+# serves 32 requests, phase 6 runs 6 Mamba-2 layers (not 8), phase 7
+# serves 8 requests a member (not 16), phase 9 runs 4 GPT-2 layers and
+# phase 14 8 encoder layers (not 32)
 MAIN_LAYERS = 6
 # phase 4's targets. Timed by device time, GPT-2 small's 6 layers leave
 # the unaligned 2048 x 768 x 50257 logits head more than half of the dense
@@ -354,12 +380,16 @@ HESSIAN_BITWISE = [(4096, 768), (4096, 3072)]
 # 512 tokens, top-2 of 16 experts) at Phi-3.5-MoE's d_ff; the slots no
 # token filled are zero rows (``core.hessian.xtx``)
 HESSIAN_MASKED = [(640, 6400)]
-# timed, fp32 with an accumulator: the main path's shape first
-HESSIAN_TIMED = [(4096, 3072), (4096, 768), (4096, 5120)]
-# timed, bf16 with an accumulator: Whisper-large-v3's decoder (phase 14),
-# one calibration batch of 8 x 512 tokens into wo_in (d_model 1280) and
-# wd_in (d_ff 5120)
-HESSIAN_TIMED_BF16 = [(4096, 1280), (4096, 5120)]
+# timed, fp32 with an accumulator: the main path's shape first, then
+# Llama-3.2-Vision's self layers (phase 15), one calibration batch of 8 x
+# 512 tokens into wo_in (d_model 4096) and wd_in (d_ff 14336): the
+# one-shot path's captures reach the kernel in fp32 (``core.hessian.xtx``)
+HESSIAN_TIMED = [(4096, 3072), (4096, 768), (4096, 5120), (4096, 4096),
+                 (4096, 14336)]
+# timed, bf16 with an accumulator: Whisper-large-v3's decoder (phase 14)
+# wo_in (d_model 1280) and wd_in (d_ff 5120), and Llama-3.2-Vision's
+HESSIAN_TIMED_BF16 = [(4096, 1280), (4096, 5120), (4096, 4096),
+                      (4096, 14336)]
 
 
 def hessian_close(got, want, n):
@@ -494,16 +524,20 @@ def check_kernels(torch, kernels):
 
     # --- obs_downdate: the FFN group (M=12, d_in=d_ff, gs=1) and the
     # attention group (d_in=d_model, gs=head_dim) of GPT-2 small, a d_live
-    # prefix, a ragged case, a Phi-3.5-MoE layer's 16 experts (the only
-    # gs = 1 stack with d_in above 3072) and Whisper-large-v3's FFN stack
-    # of phase 14 (4 decoder layers, d_ff 5120, d_model 1280)
+    # prefix, a ragged case, a Phi-3.5-MoE layer's 16 experts,
+    # Whisper-large-v3's FFN stack of phase 14 (4 decoder layers, d_ff
+    # 5120, d_model 1280) and Llama-3.2-Vision's two stacks of phase 15 (5
+    # self layers: the FFN at d_ff 14336, gs 1; the attention's 8 KV groups
+    # of 4 x 128 wo_in rows, gs 512)
     main, other = None, []
     for M, d_in, d_out, gs, d_live in [(12, 3072, 768, 1, None),
                                        (12, 768, 768, 64, None),
                                        (12, 3072, 768, 1, 2048),
                                        (3, 130, 12, 5, 96),
                                        (16, 6400, 4096, 1, None),
-                                       (4, 5120, 1280, 1, None)]:
+                                       (4, 5120, 1280, 1, None),
+                                       (5, 14336, 4096, 1, None),
+                                       (5, 4096, 4096, 512, None)]:
         W = torch.randn((M, d_in, d_out), device=dev, generator=g)
         H = torch.randn((M, d_in, d_in), device=dev, generator=g)
         A = torch.randn((M, d_in, gs), device=dev, generator=g)
@@ -548,9 +582,11 @@ def check_kernels(torch, kernels):
 
 
 # timed beside the main path's shape, (M, d_in, d_out, gs): a Phi-3.5-MoE
-# layer's 16 experts, the stack of every step of phase 7's database, and
-# Whisper-large-v3's 4 decoder FFNs, the stack of phase 14's FFN steps
-DOWNDATE_TIMED = [(16, 6400, 4096, 1), (4, 5120, 1280, 1)]
+# layer's 16 experts, the stack of every step of phase 7's database,
+# Whisper-large-v3's 4 decoder FFNs, the stack of phase 14's FFN steps, and
+# Llama-3.2-Vision's 5 FFNs and 5 attention modules, phase 15's stacks
+DOWNDATE_TIMED = [(16, 6400, 4096, 1), (4, 5120, 1280, 1),
+                  (5, 14336, 4096, 1), (5, 4096, 4096, 512)]
 TIMED_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
 
@@ -1224,6 +1260,29 @@ def check_small_slice(torch):
     check_small_train(torch, cfg, p_cpu, db_cpu, res[2.0].assignment)
 
 
+# to_host's staging at the edges of its chunks: (elements, chunk, dtype)
+TO_HOST_CASES = [(n, 1000, dt) for n in (0, 1, 999, 1000, 1001, 2000, 3500)
+                 for dt in ("float16", "float32")] + [(3 << 20, 1 << 20,
+                                                      "float16")]
+
+
+def check_to_host(torch):
+    """The databases' and checkpoints' device-to-host copy (pinned
+    staging, chunk by chunk) against ``.cpu()``, bit for bit."""
+    from repro_torch.runtime.device import to_host
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for n, chunk, dt in TO_HOST_CASES:
+        x = torch.randn(n, 3, generator=g, device="cuda").to(
+            getattr(torch, dt))
+        got = to_host(x, chunk=chunk)
+        check(got.shape == (n, 3) and bool(torch.equal(
+            torch.from_numpy(got), x.cpu())),
+            f"to_host of ({n}, 3) {dt} in chunks of {chunk} differs from "
+            ".cpu()")
+    print(f"to_host == .cpu() bit for bit at {len(TO_HOST_CASES)} sizes "
+          "and chunks")
+
+
 def rows_zero(torch, params, db, assignment) -> bool:
     """Every removed structure's out-side rows are exactly 0."""
     import numpy as np
@@ -1409,26 +1468,45 @@ def check_small_scan_model(torch, kernels, cfg, seed: int, what: str):
     check_small_ssm_train(torch, kernels, cfg, p_cpu, what)
 
 
+def cross_gates(params):
+    """The cross-attention gates: a decoder layer's ``layers.xattn`` or a
+    cross group's ``cross.xattn``."""
+    owner = params["cross"] if "cross" in params else params["layers"]
+    return owner["xattn"]["gate"]
+
+
 def open_gates(torch, params, seed: int) -> None:
-    """Set every decoder layer's cross-attention gate, in place, from a
-    seeded draw whose tanh lies in [0.5, 0.9]: at their initial 0 the
-    frames would reach no logit, and a check could not see the encoder or
-    the cross-attention."""
+    """Set every cross-attention gate (each decoder layer's, or each cross
+    group's), in place, from a seeded draw whose tanh lies in [0.5, 0.9]:
+    at their initial 0 the frames would reach no logit, and a check could
+    not see the encoder or the cross-attention."""
     import numpy as np
-    gate = params["layers"]["xattn"]["gate"]
+    gate = cross_gates(params)
     draw = np.random.default_rng(seed).uniform(0.5, 0.9, tuple(gate.shape))
     gate.copy_(torch.from_numpy(np.arctanh(draw)))
 
 
-def check_small_encdec(torch):
-    """Phase 3, Whisper: the reference's smoke shape
-    (``smoke_config("whisper-large-v3")``: 2 decoder and 2 encoder
-    layers, d_model 128, 4 heads of 32, d_ff 256, 16 frames of 128, vocab
-    512) in fp32, its cross-attention gates opened (``open_gates``), on
-    the card and on the CPU on the same weights and frames: logits within
-    1e-4 of their scale, Hessians within 1e-4 of theirs, database errors
-    and orders as for the small GPT-2, and greedy tokens through the
-    cross cache (``generate(frontend=...)``) equal."""
+# phase 3's models with frames, (config name, changes, seed, label): the
+# reference's smoke Whisper (2 decoder and 2 encoder layers, d_model 128, 4
+# heads of 32, d_ff 256, 16 frames of 128, vocab 512), its smoke
+# Llama-3.2-Vision (2 self layers and 1 cross group, 4 heads on 1 KV head
+# of 32, 16 frames of 128) and the same with two cross groups over frames
+# of 96 (``frontend_proj``)
+SMALL_CROSS = [
+    ("whisper-large-v3", {}, 6, "Whisper"),
+    ("llama-3.2-vision-11b", {}, 7, "VLM"),
+    ("llama-3.2-vision-11b", {"frontend_dim": 96, "num_layers": 4}, 8,
+     "VLM two groups"),
+]
+
+
+def check_small_cross(torch, name, changes, seed, what):
+    """Phase 3, a model with frames: ``smoke_config(name)`` with
+    ``changes`` in fp32, its cross-attention gates opened
+    (``open_gates``), on the card and on the CPU on the same weights and
+    frames: logits within 1e-4 of their scale, Hessians within 1e-4 of
+    theirs, database errors and orders as for the small GPT-2, and greedy
+    tokens through the cross cache (``generate(frontend=...)``) equal."""
     import numpy as np
     from repro_torch.configs import smoke_config
     from repro_torch.core.database import build_database
@@ -1437,9 +1515,10 @@ def check_small_encdec(torch):
     from repro_torch.models import forward, generate, model_init
     from repro_torch.models.transformer import tree_to
 
-    cfg = smoke_config("whisper-large-v3").replace(dtype="float32")
-    p_cpu = model_init(cfg, torch.Generator().manual_seed(6), device="cpu")
-    open_gates(torch, p_cpu, 6)
+    cfg = smoke_config(name).replace(dtype="float32", **changes)
+    p_cpu = model_init(cfg, torch.Generator().manual_seed(seed),
+                       device="cpu")
+    open_gates(torch, p_cpu, seed)
     p_gpu = tree_to(p_cpu, "cuda")
     calib = calibration_batches(cfg, 16, 64, batch=8)
     tokens, frames = calib[0]["tokens"], calib[0]["frontend"]
@@ -1448,30 +1527,30 @@ def check_small_encdec(torch):
                      frontend_embeds=frames.cuda())["logits"].cpu()
     err, scale = float((lg_gpu - lg_cpu).abs().max()), float(
         lg_cpu.abs().max())
-    print(f"small Whisper: gates {p_cpu['layers']['xattn']['gate'].tolist()}"
-          f"; logits card vs CPU max_abs_err={err:.3e} (scale {scale:.3e}, "
-          f"tol 1e-4*scale)")
-    check(err <= 1e-4 * scale, "Whisper logits disagree between card and "
+    print(f"small {what}: gates {cross_gates(p_cpu).tolist()}; logits card "
+          f"vs CPU max_abs_err={err:.3e} (scale {scale:.3e}, tol "
+          f"1e-4*scale)")
+    check(err <= 1e-4 * scale, f"{what} logits disagree between card and "
           "CPU")
     h_cpu = collect_hessians(cfg, p_cpu, calib, device="cpu")
     h_gpu = collect_hessians(cfg, p_gpu, calib, device="cuda")
     herr = max(float((h_gpu[k].cpu() - h_cpu[k]).abs().max()) for k in h_cpu)
     hscale = max(float(h.abs().max()) for h in h_cpu.values())
-    print(f"small Whisper: Hessians of {list(h_cpu)} card vs CPU "
+    print(f"small {what}: Hessians of {list(h_cpu)} card vs CPU "
           f"max_abs_err={herr:.3e} (scale {hscale:.3e}, tol 1e-4*scale)")
     check(herr <= 1e-4 * hscale,
-          "Whisper Hessians disagree between card and CPU")
+          f"{what} Hessians disagree between card and CPU")
     compare_databases(np, build_database(cfg, p_cpu, h_cpu, device="cpu"),
                       build_database(cfg, p_gpu, h_cpu, device="cuda"),
-                      "small Whisper")
+                      f"small {what}")
     prompt, fe = tokens[:2, :40], frames[:2]
     t_cpu = generate(cfg, p_cpu, prompt, 12, frontend=fe)
     t_gpu = generate(cfg, p_gpu, prompt.cuda(), 12,
                      frontend=fe.cuda()).cpu()
-    print(f"small Whisper: greedy tokens of {tuple(prompt.shape)} prompts "
+    print(f"small {what}: greedy tokens of {tuple(prompt.shape)} prompts "
           f"with their frames, 12 steps through the cross cache, card == "
           f"CPU: {torch.equal(t_gpu, t_cpu)}")
-    check(torch.equal(t_gpu, t_cpu), "Whisper greedy tokens differ")
+    check(torch.equal(t_gpu, t_cpu), f"{what} greedy tokens differ")
 
 
 def ssm_step_grads(torch, cfg, params, teacher, batch):
@@ -1749,12 +1828,13 @@ def check_table_spread(cfg, env, res, rebuilds: int = 2):
 
 
 # phase 5: GPT-2 small served with flash prefill; the stream's prompts
-# pad to the 128/256/512/1024 buckets. 64 requests arrive in about 1.3
-# s, faster than 8 slots serve them: tokens/s is the saturated
+# pad to the 128/256/512/1024 buckets. 32 requests arrive in well under
+# a second, faster than 8 slots serve them: tokens/s is the saturated
 # throughput. The decode is host-bound, so the phase's time grows with
 # the requests: 256 took 160-220 s of the script's 1200 s limit, 128 at 6
-# layers 60-68 s
-SERVE = {"max_len": 1024, "slots": 8, "requests": 64}
+# layers 60-68 s, 64 a 24.8 s stream (33.7 s phase) on an NVIDIA H100
+# 80GB HBM3 at 700 W; with phase 15 added the script took 1155 s, so 32
+SERVE = {"max_len": 1024, "slots": 8, "requests": 32}
 STREAM = {"seed": 0, "rate": 50.0, "prompt_lens": (128, 256, 512, 768),
           "steps_range": (16, 64)}
 # shrunk vs stitched logits, bf16 through every layer in both (different
@@ -2146,13 +2226,17 @@ def run_train_path(torch, kernels, params, calib, db, fam):
 
 
 # phase 9: the gradual family engine (core/pipeline.py gradual_prune) on
-# phase 4's dense GPT-2 small and calibration batches: targets 1.5x and 2x,
+# the first FAMILY_LAYERS layers of phase 4's dense GPT-2 small and its
+# calibration batches: targets 1.5x and 2x,
 # each pruned, finetuned 16 steps of 8 x 512 with the reference's gradual
 # defaults (lr 8e-5, 5 warm-up steps, logit 1.0 and token 0.5
-# distillation), checkpointed every 8 steps and exported on a background
+# distillation), checkpointed at step 8 and exported on a background
 # thread. Run A goes through; run B is killed after target 0's search and
 # at step 12 of target 1's finetune, then resumed to the end, and must
-# equal run A bit for bit
+# equal run A bit for bit. Both runs pass keep_checkpoints=False: no
+# checkpoint at a finetune's last step (no run reads it; it was 2 of a
+# run's 4 checkpoint writes until the script outgrew its time with phase
+# 15), and each target's removed once its finetune has returned
 FAMILY_TARGETS = [1.5, 2.0]
 FAMILY_KW = {"finetune_steps": 16, "ckpt_every": 8, "search_steps": 16,
              "search_pop": 8}
@@ -2168,6 +2252,12 @@ FAMILY_STOP = 12
 # launch, is an assumption, not a measurement. The speedups it gives are
 # the model's, not measured ones
 FAMILY_ENV = {"batch": 16, "seq": 128, "mode": "prefill"}
+# the family runs the first 4 of phase 4's 6 layers: the cost model's
+# ceiling is 2.27x there (2.70x at 6 layers, 2.02x at 3), so 2x lies at
+# 0.88 of it. It ran all 6 (88.66 s, two thirds of it the per-layer
+# database, finetune and artifacts of runs A and B) until phase 15 took
+# the script to 1155 s
+FAMILY_LAYERS = 4
 ARTIFACT_KINDS = ("hessians.npz", "db.npz", "params.npz", "ckpt",
                   "family.json")
 
@@ -2205,7 +2295,10 @@ def run_family_path(torch, kernels, params, calib):
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.runtime.costmodel import H100_SXM, InferenceEnv
 
-    cfg = GPT2_SMALL.replace(num_layers=MAIN_LAYERS)
+    cfg = GPT2_SMALL.replace(num_layers=FAMILY_LAYERS)
+    params = {**params, "layers": {
+        grp: {k: t[:FAMILY_LAYERS] for k, t in sub.items()}
+        for grp, sub in params["layers"].items()}}
     env = InferenceEnv(hw=H100_SXM, **FAMILY_ENV)
     tcfg = TrainConfig(**FAMILY_TRAIN)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_family_")
@@ -2218,7 +2311,8 @@ def run_family_path(torch, kernels, params, calib):
     def run(name, **kw):
         return gradual_prune(cfg, params, env, FAMILY_TARGETS, data, calib,
                              tcfg=tcfg, ckpt_dir=os.path.join(tmp, name),
-                             seed=0, device="cuda", **FAMILY_KW, **kw)
+                             seed=0, keep_checkpoints=False, device="cuda",
+                             **FAMILY_KW, **kw)
 
     def run_dir(name):
         return family_run_dir(cfg, FAMILY_TARGETS, 0, os.path.join(tmp, name))
@@ -2333,11 +2427,15 @@ def run_family_path(torch, kernels, params, calib):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-# phase 6: Mamba-2 2.7B at full width with 8 of its 64 layers. Each layer's
+# phase 6: Mamba-2 2.7B at full width with 6 of its 64 layers. Each layer's
 # database keeps 81 fp16 snapshots of its 5120 x 2560 out_proj (2.12 GB),
 # all resident on the card in the SnapshotCache: 64 layers (136 GB) would
-# not fit, 8 (17.0 GB) do
-SSM_LAYERS = 8
+# not fit, 8 (17.0 GB) do. With phase 15 added the script took 1155 s, so
+# 6 (not 8): the measured table's 0.666 ms logits head and 0.150 ms a
+# layer (8 layers: 1.8632 ms, NVIDIA H100 80GB HBM3, 700 W) put the
+# ceiling near 2.35x, the 2x target at 0.85 of it (at 4 layers, 1.9x, 2x
+# is out of reach)
+SSM_LAYERS = 6
 # with 8 layers the unprunable logits head (2048 x 2560 x 50280) is about
 # a third of the dense runtime, so a member can be at most about 2.6x
 # faster than the dense model by operation count: 3x is out of reach
@@ -2477,9 +2575,10 @@ def run_ssm_path(torch, kernels):
 # At 1 layer the unprunable logits head is 0.7271 of the cost model's
 # dense runtime (a 1.3753x ceiling), so targets 1.15x and 1.3x (the table's
 # split is printed first). Phase 9's gradual defaults, search and
-# cost-model table; 8 finetune steps a target, checkpoints every 4. Run B
-# is killed at step 4 of target 1's finetune and resumed, and must equal
-# run A bit for bit
+# cost-model table; 8 finetune steps a target, a checkpoint at step 4
+# (keep_checkpoints=False as in phase 9: the one at step 8 is not
+# written). Run B is killed at step 4 of target 1's finetune and resumed,
+# and must equal run A bit for bit
 SSM_FAMILY_LAYERS = 1
 SSM_FAMILY_TARGETS = [1.15, 1.3]
 SSM_FAMILY_KW = {"finetune_steps": 8, "ckpt_every": 4, "search_steps": 16,
@@ -2565,7 +2664,8 @@ def run_ssm_family_path(torch, kernels):
     def run(name, **kw):
         return gradual_prune(cfg, params, env, targets, data, calib,
                              tcfg=tcfg, ckpt_dir=os.path.join(tmp, name),
-                             seed=0, device="cuda", **SSM_FAMILY_KW, **kw)
+                             seed=0, keep_checkpoints=False, device="cuda",
+                             **SSM_FAMILY_KW, **kw)
 
     def run_dir(name):
         return family_run_dir(cfg, targets, 0, os.path.join(tmp, name))
@@ -2701,7 +2801,9 @@ MOE_LAYERS = 1
 # with 1 layer the unprunable logits head (2048 x 4096 x 32064) bounds
 # every member's speedup, at a measured ceiling near 4.1x
 MOE_TARGETS = [1.25, 1.5, 2.0]
-MOE_SERVE = {"max_len": 576, "slots": 8, "requests": 16}
+# 8 requests a member (16 before phase 15 was added: 4.2 and 3.7 s of
+# serving in width and expert mode)
+MOE_SERVE = {"max_len": 576, "slots": 8, "requests": 8}
 MOE_STREAM = {"seed": 0, "rate": 50.0, "prompt_lens": (128, 256, 384, 512),
               "steps_range": (16, 32)}
 # the dense model's capacity factor while its logits are held against a
@@ -2983,17 +3085,19 @@ def run_moe_mode(torch, kernels, database, cfg, params, calib, env, hess,
 # expert kept or dropped whole, KV groups with their query heads. Priced by
 # the cost model on H100_SXM (FAMILY_ENV) as phases 9 and 10 are; 4
 # finetune steps a target of FAMILY_BATCH x FAMILY_SEQ tokens with the
-# engine's gradual defaults, checkpoints every 4 (one per target), SPDY 16
-# candidates in populations of 8, and the export beside the next target.
+# engine's gradual defaults, SPDY 16 candidates in populations of 8, and
+# the export beside the next target.
 MOE_FAMILY_TARGETS = [1.3, 1.6]
 MOE_FAMILY_KW = {"finetune_steps": 4, "ckpt_every": 4, "search_steps": 16,
                  "search_pop": 8}
 MOE_FAMILY_KERNELS = ("hessian_accum",)
-# a target writes about 27.6 GB (its Hessians 2.69 GB, its database 1.98
+# a target wrote about 27.6 GB (its Hessians 2.69 GB, its database 1.98
 # GB, its checkpoint of params, m and v 17.18 GB, its params 5.73 GB), and
-# the card's machine caps what one call writes to its disk at 45 GiB: the
-# run drops each target's checkpoints once its finetune has returned
-# (keep_checkpoints=False; a resume never reads them)
+# the card's machine caps what one call writes to its disk at 45 GiB, so
+# the run passes keep_checkpoints=False. Since the script outgrew its time
+# with phase 15, that flag also leaves out the checkpoint at a finetune's
+# last step, here the only one (ckpt_every = finetune_steps): each target
+# writes no checkpoint, about 10.4 GB in all
 # the repeated train steps of the determinism check
 MOE_REPEAT_STEPS = 2
 
@@ -3402,13 +3506,17 @@ def run_hybrid_path(torch, kernels):
 
 
 # phase 14: Whisper-large-v3 (configs/whisper_large_v3.py, arXiv:2212.04356)
-# at full width: the encoder at all 32 of its layers over (8, 1500, 1280)
+# at full width: the encoder at 8 of its 32 layers over (8, 1500, 1280)
 # frame embeddings, and 4 of the 32 decoder layers (d_model 1280, 20 heads
 # of 64, d_ff 5120, vocab 51866 tied). Only the decoder's units are pruned
 # and priced, as in the reference; the encoder and the cross-attention stay
-# dense. The 0.8 B weights are drawn on the card's generator (the host's
-# takes over a minute for them) and the gates opened (``open_gates``)
+# dense, so the encoder's depth moves no speedup or ceiling: it ran all 32
+# layers (search 9.67 s, most of it the encoder re-run for each scored
+# candidate) until phase 15 took the script to 1155 s. The weights are
+# drawn on the card's generator (the host's takes over a minute for
+# them) and the gates opened (``open_gates``)
 ENCDEC_LAYERS = 4
+ENCDEC_ENCODER_LAYERS = 8
 # the tied logits head (2048 x 1280 x 51866) bounds every member's speedup:
 # the measured table's ceiling is 1.8796x (NVIDIA H100 80GB HBM3, 700 W),
 # so 1.25x and 1.5x stay and the 2x target, above it, became 1.67x (0.89
@@ -3423,7 +3531,7 @@ ENCDEC_TOL = (2e-3, 1e-2)
 ENCDEC_KERNELS = ("hessian_accum", "obs_downdate")
 
 
-def check_encdec_decode(torch, cfg, params, prompt, frames, what):
+def check_cross_decode(torch, cfg, params, prompt, frames, what):
     """Greedy ``generate(frontend=...)`` of ENCDEC_STEPS tokens, then the
     same prefill and decode steps by hand: each step's logits against the
     full forward over the prompt and the generated tokens (ENCDEC_TOL),
@@ -3454,10 +3562,9 @@ def check_encdec_decode(torch, cfg, params, prompt, frames, what):
           f"max_abs_err={worst:.3e} (tol {atol:g} + {rtol:g}*|logit|) "
           f"{'ok' if within else 'MISMATCH'}; argmax == generated tokens: "
           f"{greedy}")
-    check(within, f"Whisper {what}: decoded logits disagree with the full "
-          "forward")
-    check(greedy, f"Whisper {what}: generate's tokens are not the argmax of "
-          "its logits")
+    check(within, f"{what}: decoded logits disagree with the full forward")
+    check(greedy, f"{what}: generate's tokens are not the argmax of its "
+          "logits")
 
 
 def run_encdec_path(torch, kernels):
@@ -3470,7 +3577,8 @@ def run_encdec_path(torch, kernels):
     from repro_torch.models import forward, model_init
     from repro_torch.runtime.costmodel import InferenceEnv
 
-    cfg = WHISPER_LARGE_V3.replace(num_layers=ENCDEC_LAYERS)
+    cfg = WHISPER_LARGE_V3.replace(num_layers=ENCDEC_LAYERS,
+                                   num_encoder_layers=ENCDEC_ENCODER_LAYERS)
     t0 = time.perf_counter()
     params = model_init(cfg, torch.Generator(device="cuda").manual_seed(0),
                         device="cuda")
@@ -3479,13 +3587,13 @@ def run_encdec_path(torch, kernels):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(params))
-    gates = [round(math.tanh(g), 4)
-             for g in params["layers"]["xattn"]["gate"].tolist()]
+    gates = [round(math.tanh(g), 4) for g in cross_gates(params).tolist()]
     env = InferenceEnv(batch=16, seq=128, mode="prefill", hw=None)
     targets = ENCDEC_TARGETS
     print(f"Whisper path: {cfg.name} encoder {cfg.num_encoder_layers} "
           f"layers over {cfg.num_frontend_tokens} x {cfg.frontend_dim} "
-          f"frames, decoder {cfg.num_layers} of {WHISPER_LARGE_V3.num_layers}"
+          f"frames ({WHISPER_LARGE_V3.num_encoder_layers} in the model), "
+          f"decoder {cfg.num_layers} of {WHISPER_LARGE_V3.num_layers}"
           f" layers, d_model={cfg.d_model} {cfg.num_heads}x"
           f"{cfg.resolved_head_dim} heads, d_ff={cfg.d_ff} vocab="
           f"{cfg.vocab_size} dtype={cfg.dtype}, {n_params} parameters; gates "
@@ -3570,7 +3678,145 @@ def run_encdec_path(torch, kernels):
     torch.cuda.empty_cache()
     cfg32 = cfg.replace(dtype="float32")
     for what, p in (("dense", params), (f"{top}x member", member)):
-        check_encdec_decode(torch, cfg32, p, prompt, frames, what)
+        check_cross_decode(torch, cfg32, p, prompt, frames,
+                           f"Whisper {what}")
+    return launches
+
+
+# phase 15: Llama-3.2-Vision-11B (configs/llama32_vision_11b.py,
+# hf:meta-llama/Llama-3.2-11B-Vision) at full width (d_model 4096, 32 heads
+# on 8 KV heads of 128, d_ff 14336 SwiGLU, vocab 128256 tied, RoPE theta
+# 5e5) with one cross group: 5 self layers and the cross-attention module
+# after them, over (8, 1601, 4096) patch embeddings. Only the self layers'
+# units are pruned and priced, as in the reference; the cross module stays
+# dense. The 1.66 B weights are drawn on the card's generator and the gate
+# opened (``open_gates``). A layer's database keeps 5.3 GB of fp16
+# snapshots (44 FFN levels of 14336 x 4096, 9 attention levels of 4096 x
+# 4096), 27.3 GB in all, through host memory
+VLM_LAYERS = 5
+# the tied logits head (2048 x 4096 x 128256, 2.6432 ms) against five
+# self layers: the measured table's ceiling is 2.9794x (NVIDIA H100 80GB
+# HBM3, 700 W), so the 2x target lies under 0.9 of it and every target
+# stays
+VLM_TARGETS = [1.25, 1.5, 2.0]
+VLM_CEILING = 2.9794
+VLM_KERNELS = ("hessian_accum", "obs_downdate")
+
+
+def run_vlm_path(torch, kernels):
+    """Phase 15: oneshot_prune on Llama-3.2-Vision-11B (one cross group),
+    then the frames' effect and fp32 decoding through the grouped cross
+    cache."""
+    from repro_torch.configs import LLAMA32_VISION_11B
+    from repro_torch.core import database
+    from repro_torch.core.oneshot import oneshot_prune
+    from repro_torch.data import calibration_batches
+    from repro_torch.models import forward, model_init
+    from repro_torch.runtime.costmodel import InferenceEnv
+
+    cfg = LLAMA32_VISION_11B.replace(num_layers=VLM_LAYERS)
+    t0 = time.perf_counter()
+    params = model_init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    open_gates(torch, params, 0)
+    calib = calibration_batches(cfg, 32, 512, batch=8)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    gates = [round(math.tanh(g), 4) for g in cross_gates(params).tolist()]
+    env = InferenceEnv(batch=16, seq=128, mode="prefill", hw=None)
+    targets = VLM_TARGETS
+    print(f"VLM path: {cfg.name} {cfg.num_layers} of "
+          f"{LLAMA32_VISION_11B.num_layers} self layers with a cross module "
+          f"after every {cfg.cross_attn_every} ({len(gates)} here) over "
+          f"{cfg.num_frontend_tokens} x {cfg.frontend_dim} patches, "
+          f"d_model={cfg.d_model} {cfg.num_heads}/{cfg.num_kv_heads}x"
+          f"{cfg.resolved_head_dim} heads, d_ff={cfg.d_ff} vocab="
+          f"{cfg.vocab_size} dtype={cfg.dtype}, {n_params} parameters, "
+          f"frontend_proj: {'frontend_proj' in params}; gates tanh {gates}; "
+          f"calibration 32 x 512 tokens in batches of 8, each with "
+          f"{tuple(calib[0]['frontend'].shape)} frames; env batch="
+          f"{env.batch} seq={env.seq} {env.mode}, measured table "
+          f"({LATENCY_KW}); targets {targets}")
+
+    kernels.reset_launch_counts()
+    database.reset_snapshot_traffic()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = oneshot_prune(cfg, params, calib, env, targets,
+                        latency_backend="measure", latency_kw=LATENCY_KW,
+                        search_steps=48, search_pop=16, seed=0,
+                        device="cuda")
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    traffic = dict(database.SNAPSHOT_TRAFFIC)
+    snap_bytes = sum(m.snapshots.nbytes for m in res.db.values())
+    levels = {m.mod.kind: len(m.levels) for m in res.db.values()}
+    print(f"VLM path: setup (weights + tokens + frames) {setup_s:.3f} s, "
+          f"oneshot_prune {total_s:.3f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"{len(res.db)} modules, levels {levels}, database snapshots "
+          f"{snap_bytes} bytes ({snap_bytes / cfg.num_layers / 1e9:.3f} GB a "
+          f"layer); host round trip: fetch {traffic['fetch_bytes']} bytes in "
+          f"{traffic['fetch_s']:.3f} s, upload {traffic['upload_bytes']} bytes"
+          f" in {traffic['upload_s']:.3f} s")
+    print("VLM stage seconds: " + json.dumps(
+        {k: round(v, 4) for k, v in res.stage_seconds.items()}))
+    print(f"VLM path launches: {launches}")
+    print(f"VLM table: base {res.table.base * 1e3:.4f} ms, " + ", ".join(
+        f"{k} levels {res.table.grids[k].tolist()} ms "
+        f"{[round(float(x) * 1e3, 4) for x in res.table.times[k]]}"
+        for k in res.table.grids))
+    print(f"VLM dense: calibration loss {res.dense_loss:.4f}")
+    check_ceiling(res, VLM_CEILING, "VLM path")
+    check(math.isfinite(res.dense_loss), "VLM: non-finite dense loss")
+    for t in targets:
+        v = res.variants[t]
+        kinds = {k: sum(r for n, r in v.assignment.items()
+                        if n.endswith("." + k)) for k in levels}
+        zero = rows_zero(torch, v.params, res.db, v.assignment)
+        print(f"  target {t}x: speedup {v.speedup:.3f}x, runtime "
+              f"{v.runtime * 1e3:.4f} ms, loss {v.calib_loss:.4f}, removed "
+              f"{kinds} (KV groups, FFN rows), per module "
+              f"{dict(sorted(v.assignment.items()))}, evals "
+              f"{v.search.n_evals}; removed rows 0: {zero}")
+        check(v.speedup >= t, f"VLM target {t}x not met: {v.speedup:.4f}x")
+        check(math.isfinite(v.calib_loss), f"VLM {t}x: non-finite loss")
+        check(zero, f"VLM {t}x: a removed structure's rows are not 0")
+        for grp, leaf in (("attn", "wo"), ("ffn", "wd")):
+            w = v.params["layers"][grp][leaf]
+            check(w.shape == params["layers"][grp][leaf].shape
+                  and bool(torch.isfinite(w).all()),
+                  f"VLM {t}x: {leaf} has the wrong shape or non-finite "
+                  "values")
+        check(all(torch.equal(a, b) for a, b in zip(
+            _leaves(v.params["cross"]), _leaves(params["cross"]))),
+            f"VLM {t}x: the cross module is not the dense model's")
+    for name in VLM_KERNELS:
+        check(launches[name] > 0, f"{name} never launched on the VLM path")
+
+    top = targets[-1]
+    member = res.variants[top].params
+    tokens = calib[0]["tokens"].cuda()
+    with torch.no_grad():
+        for what, p in (("dense", params), (f"{top}x member", member)):
+            a = forward(cfg, p, tokens, frontend_embeds=calib[0]["frontend"])
+            b = forward(cfg, p, tokens, frontend_embeds=calib[1]["frontend"])
+            moved = float((a["logits"] - b["logits"]).abs().max())
+            scale = float(a["logits"].abs().max())
+            print(f"  {what}: logits on {tuple(tokens.shape)} tokens move by "
+                  f"{moved:.4e} (scale {scale:.4e}) when the frames change")
+            check(moved > 1e-2 * scale, f"VLM {what}: the frames do not "
+                  "reach the logits")
+            del a, b
+    prompt = tokens[:2, :ENCDEC_PROMPT]
+    frames = calib[0]["frontend"][:2].float().cuda()
+    del res, calib
+    torch.cuda.empty_cache()
+    cfg32 = cfg.replace(dtype="float32")
+    for what, p in (("dense", params), (f"{top}x member", member)):
+        check_cross_decode(torch, cfg32, p, prompt, frames, f"VLM {what}")
     return launches
 
 
@@ -3622,10 +3868,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     check_small_slice(torch)
+    check_to_host(torch)
     check_small_serving(torch)
     check_small_ssm(torch, kernels)
     check_small_hybrid(torch, kernels)
-    check_small_encdec(torch)
+    for name, changes, seed, what in SMALL_CROSS:
+        check_small_cross(torch, name, changes, seed, what)
     check_small_moe(torch)
     print(f"phase 3: small slices agree between card and CPU "
           f"({time.perf_counter() - t0:.2f} s)")
@@ -3696,6 +3944,11 @@ def main() -> int:
     t0 = time.perf_counter()
     encdec_launches = run_encdec_path(torch, kernels)
     print(f"phase 14: Whisper path done ({time.perf_counter() - t0:.2f} s)")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    vlm_launches = run_vlm_path(torch, kernels)
+    print(f"phase 15: VLM path done ({time.perf_counter() - t0:.2f} s)")
 
     for name, rec in records.items():
         rec["launches"] = launches[name]
@@ -3706,6 +3959,7 @@ def main() -> int:
         rec["moe_family_launches"] = moe_family_launches[name]
         rec["hybrid_launches"] = hybrid_launches[name]
         rec["encdec_launches"] = encdec_launches[name]
+        rec["vlm_launches"] = vlm_launches[name]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     # flash attention's and the SSD passes' device-only times ride beside
@@ -3714,12 +3968,13 @@ def main() -> int:
     # beside their main shape, and each kernel's launches on the MoE path
     # (phase 7), on the trainer's path (phase 8) and in the family engines'
     # runs A (phases 9 and 10), the MoE family run (phase 11), the Hymba
-    # path (phase 13) and the Whisper path (phase 14) beside those on its
-    # own path (phases 4-6; the SSD backward's own path is phase 10)
+    # path (phase 13), the Whisper path (phase 14) and the VLM path (phase
+    # 15) beside those on its own path (phases 4-6; the SSD backward's own
+    # path is phase 10)
     extra = ["note", "device_ms", "library_device_ms", "passes_ms",
              "other_shapes", "moe_launches", "train_launches",
              "family_launches", "ssm_family_launches", "moe_family_launches",
-             "hybrid_launches", "encdec_launches"]
+             "hybrid_launches", "encdec_launches", "vlm_launches"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in records.values()]}))
     print(card_line())

@@ -8,9 +8,10 @@ data sheet (``runtime.costmodel.H100_SXM``).
   PYTHONPATH=src python examples/torch_oneshot_prune_arch.py --arch dbrx-132b
 
 ``--arch`` takes the assigned architectures the port runs
-(``configs.ASSIGNED`` less ``configs.NOT_PORTED``). An encoder/decoder
-model (whisper-large-v3) is not shrunk: the example prints its decoder
-layers' kept structures and returns no shrunk model.
+(``configs.ASSIGNED`` less ``configs.NOT_PORTED``). A model with
+cross-attention, encoder/decoder (whisper-large-v3) or grouped cross
+layers (llama-3.2-vision-11b), is not shrunk: the example prints its
+self layers' kept structures and returns no shrunk model.
 """
 import argparse
 import os
@@ -55,14 +56,16 @@ def main(argv=None):
     v = res.variants[args.target]
     print(f"target {args.target}x -> achieved {v.speedup:.2f}x  "
           f"loss {res.dense_loss:.4f} -> {v.calib_loss:.4f}")
-    if cfg.encoder_decoder:
-        # shrink refuses it (the pruned runtime has no encoder and no
-        # cross-attention): each decoder layer's kept structures
+    if cfg.encoder_decoder or cfg.cross_attn_every:
+        # shrink refuses it (the pruned runtime has no cross-attention):
+        # each self layer's kept structures
+        kept_too = ("encoder and cross-attention" if cfg.encoder_decoder
+                    else "cross layers")
         for i in range(cfg.num_layers):
             kept = {k: len(res.db[f"L{i}.{k}"].kept_structures(
                 v.assignment[f"L{i}.{k}"])) for k in ("attn", "ffn")}
             print(f"  layer {i}: kv_groups={kept['attn']}, "
-                  f"d_ff={kept['ffn']} (encoder and cross-attention kept)")
+                  f"d_ff={kept['ffn']} ({kept_too} kept)")
         return res, None
     pm = shrink(cfg, v.params, res.db, v.assignment, device=dev)
     for i, l in enumerate(pm.layers):

@@ -37,6 +37,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from ..runtime.device import to_host
+
 
 class CheckpointWriteError(RuntimeError):
     """One or more checkpoint writes failed (after bounded retries).
@@ -99,6 +101,8 @@ def _host(leaf) -> np.ndarray:
         t = leaf.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
+        if t.device.type == "cuda":
+            return to_host(t)
         return t.to("cpu", copy=True).numpy()
     return np.array(leaf, copy=True)
 

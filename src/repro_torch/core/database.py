@@ -21,7 +21,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..runtime.device import DeviceLike, resolve_device, synchronize
+from ..runtime.device import (DeviceLike, resolve_device, synchronize,
+                              to_host)
 from .obs import (build_hessian, module_drop_error, module_drop_errors,
                   prune_structured, prune_structured_batched)
 from .structures import (UNITS, PrunableModule, copy_tree, get_matrix,
@@ -63,14 +64,26 @@ def _inverse_or_nan(h: torch.Tensor) -> torch.Tensor:
                        torch.full_like(inv, float("nan")), inv)
 
 
-def _non_finite_report(names, levels, errs, snaps16) -> List[str]:
+def _finite_snapshots(snaps: torch.Tensor, n_mods: int,
+                      n_levels: int) -> np.ndarray:
+    """(modules, levels) bools, whether each float16 snapshot is entirely
+    finite, reduced where the snapshots are, one level at a time: at full
+    width the stack is tens of GB, too much for one boolean temporary on
+    the card or for a pass of numpy's float16 ``isfinite`` on the host."""
+    s = snaps.reshape(n_mods, n_levels, -1)
+    return torch.stack([torch.isfinite(s[:, i]).all(-1)
+                        for i in range(n_levels)], 1).cpu().numpy()
+
+
+def _non_finite_report(names, levels, errs, snap_ok) -> List[str]:
     """Per module whose prune went non-finite: its name and the first
     level whose cumulative error, or float16 snapshot, is not finite (the
     error stays non-finite once it is, so the step that failed lies
-    between the level before and that level)."""
+    between the level before and that level). ``snap_ok`` is
+    :func:`_finite_snapshots` of the snapshots."""
     errs = errs.reshape(len(names), len(levels))
     bad_err = ~np.isfinite(errs)
-    bad_snap = ~np.isfinite(snaps16.reshape(*errs.shape, -1)).all(axis=-1)
+    bad_snap = ~snap_ok
     out = []
     for m, name in enumerate(names):
         what = []
@@ -93,28 +106,29 @@ def _prune_healed(prune_fn, Ws, Hraw, *, group_size, n_remove, levels,
     non-finite; returns host arrays ``(snaps16, errs, orders)``.
 
     Rung 0 is the caller's damp, so a run that never escalates is the
-    un-healed computation; the finite check reads values fetched anyway.
-    Each failed rung names the modules that failed and where.
+    un-healed computation; the snapshots are checked on their device and
+    fetched only when the rung is finite. Each failed rung names the
+    modules that failed and where.
     """
     rungs = damp_schedule(damp)
     for attempt, rung in enumerate(rungs):
         Hinv = _inverse_or_nan(build_hessian(Hraw, rung))
         res = prune_fn(Ws, Hinv, group_size=group_size, n_remove=n_remove,
                        levels=levels)
-        # sync: DB materialization — fetched once per chunk per rung
-        synchronize(res.snapshots.device)
-        t0 = time.perf_counter()
-        snaps16 = res.snapshots.cpu().numpy()
-        SNAPSHOT_TRAFFIC["fetch_s"] += time.perf_counter() - t0
-        SNAPSHOT_TRAFFIC["fetch_bytes"] += snaps16.nbytes
         errs = res.errors.cpu().numpy()
-        orders = res.order.cpu().numpy()
-        bad = _non_finite_report(names, levels, errs, snaps16)
+        snap_ok = _finite_snapshots(res.snapshots, len(names), len(levels))
+        bad = _non_finite_report(names, levels, errs, snap_ok)
         if not bad:
             if attempt:
                 print(f"[robustness] obs: healed non-finite prune at "
                       f"damp={rung:g} (rung {attempt})")
-            return snaps16, errs, orders
+            # sync: DB materialization — fetched once per chunk
+            synchronize(res.snapshots.device)
+            t0 = time.perf_counter()
+            snaps16 = to_host(res.snapshots)
+            SNAPSHOT_TRAFFIC["fetch_s"] += time.perf_counter() - t0
+            SNAPSHOT_TRAFFIC["fetch_bytes"] += snaps16.nbytes
+            return snaps16, errs, res.order.cpu().numpy()
         print(f"[robustness] obs: non-finite prune at damp={rung:g} in "
               f"{len(bad)} of {len(names)} module(s): " + "; ".join(bad))
     raise FloatingPointError(

@@ -74,7 +74,15 @@ def _select_and_downdate(W, Hinv, removed, *, gs: int):
         # scalar structures: the (1,1) block solve is a division
         diag = torch.diagonal(Hinv, dim1=-2, dim2=-1)          # (M, n)
         safe = torch.where(removed, 1.0, diag)
-        scores = (W * W).sum(-1) / safe
+        # on the card one pass over W, where W * W would be written and
+        # read again (three times W's bytes a step, beside the downdate's
+        # read and write of W and Hinv); the CPU keeps the reference's
+        # expression
+        if W.is_cuda:
+            sq = torch.linalg.vector_norm(W, dim=-1).square()
+        else:
+            sq = (W * W).sum(-1)
+        scores = sq / safe
         scores = torch.where(removed, float("inf"), scores.clamp_min(0.0))
         s = scores.argmin(-1)                                   # (M,)
         HcolS = Hinv[rows, :, s].unsqueeze(-1)                  # (M, d, 1)

@@ -139,12 +139,12 @@ from ..checkpoint.manager import (CheckpointManager, CheckpointWriteError,
                                   atomic_write_json, file_sha256, load_json,
                                   npz_bytes, restore_pytree, retry_io)
 from ..configs.base import TrainConfig
-from ..models.pruned import PrunedModel, refuse_encoder_decoder
+from ..models.pruned import PrunedModel, refuse_cross_attention
 from ..models.transformer import tree_to
 from ..optim.adamw import tree_leaves, tree_map
 from ..robustness.integrity import checked_npz_load, quarantine_file
 from ..robustness.report import RobustnessReport, report_scope
-from ..runtime.device import DeviceLike, resolve_device
+from ..runtime.device import DeviceLike, resolve_device, to_host
 from ..train.trainer import Trainer
 from .database import (ModuleDB, SnapshotCache, apply_assignment,
                        build_database)
@@ -360,7 +360,7 @@ def _stream_artifact(mgr: CheckpointManager, path: str,
 def _hessian_arrays(hessians: Dict[str, torch.Tensor]
                     ) -> Dict[str, np.ndarray]:
     # sync: artifact persistence, one pull per module Hessian
-    return {k: v.detach().cpu().numpy() for k, v in hessians.items()}
+    return {k: to_host(v) for k, v in hessians.items()}
 
 
 def _save_hessians(path: str, hessians: Dict[str, torch.Tensor]) -> str:
@@ -488,7 +488,10 @@ def gradual_prune(cfg, params, env, targets: Sequence[float],
     included.
 
     ``keep_checkpoints=False`` removes a target's trainer checkpoints
-    (``t<target>/ckpt/``) once its finetune has returned: a resume
+    (``t<target>/ckpt/``) once its finetune has returned, and the trainer
+    writes none at the finetune's last step (it would be removed at
+    once; those at ``ckpt_every`` multiples before it stay until the
+    finetune returns, for a kill in the middle of it): a resume
     restores a done target from its ``params.npz``, and a target whose
     ``params.npz`` was lost finetunes again from step 0, to the same bits
     with a step-indexed data source. At full width the checkpoints are
@@ -506,7 +509,7 @@ def gradual_prune(cfg, params, env, targets: Sequence[float],
     the measure backend searches its remaining targets against another
     table: the cost-model backend keeps a resume bit-equal.
     """
-    refuse_encoder_decoder(cfg, "gradual_prune (each target exports a "
+    refuse_cross_attention(cfg, "gradual_prune (each target exports a "
                            "shrunk model)")
     dev = resolve_device(device)
     if any(a is not None for a in (mesh, data_axes, mc, specs)):
@@ -782,7 +785,8 @@ def _family_engine(cfg, params, env, targets, data, calib_batches, *, tcfg,
                 if start < finetune_steps:
                     frs.log_exec(tkey, "finetune")
                 state = trainer.fit(state, data_iter, steps=finetune_steps,
-                                    stop_after=fit_stop)
+                                    stop_after=fit_stop,
+                                    save_last=keep_checkpoints)
             finally:
                 trainer.ckpt.close()
             if int(state.step) < finetune_steps:

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..models.pruned import (PrunedLayer, PrunedModel,
-                             refuse_encoder_decoder)
+                             refuse_cross_attention)
 from ..runtime.device import DeviceLike, resolve_device
 from .database import ModuleDB
 from .structures import UNITS, dropped_layers
@@ -144,7 +144,7 @@ def shrink(cfg, params, db: Dict[str, ModuleDB], assignment: Dict[str, int],
            device: DeviceLike = None) -> PrunedModel:
     """The shrunk model of ``assignment``, sliced on the host from
     ``params`` and the database's snapshots, on ``device``."""
-    refuse_encoder_decoder(cfg, "shrink")
+    refuse_cross_attention(cfg, "shrink")
     dev = resolve_device(device)
     ctx = _HostCtx(params["layers"], db, assignment, dev)
     return _shrink_impl(cfg, params, ctx, dev)
@@ -155,7 +155,7 @@ def shrink_from_stitched(cfg, stitched, db: Dict[str, ModuleDB],
     """The shrunk model of ``assignment`` from a ``SnapshotCache.apply``
     stitched tree, sliced where the tree lives (no host round trip). Gives
     the same ``PrunedModel`` as ``shrink``."""
-    refuse_encoder_decoder(cfg, "shrink_from_stitched")
+    refuse_cross_attention(cfg, "shrink_from_stitched")
     dev = stitched["embed"]["table"].device
     ctx = _DeviceCtx(stitched["layers"], db, assignment)
     return _shrink_impl(cfg, stitched, ctx, dev)

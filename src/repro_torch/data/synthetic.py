@@ -49,12 +49,12 @@ def make_batch_np(cfg, batch: int, seq: int, *, seed: int = 0,
                   step: int = 0) -> Dict[str, torch.Tensor]:
     """A token batch (plus masked-LM labels/mask for encoders, and the
     stub frontend's frame embeddings (B, T, F) in the compute dtype for
-    an audio encoder/decoder, drawn as the reference draws them)."""
-    if cfg.frontend not in ("none", "audio_stub"):
+    an audio encoder/decoder or a vision cross-attention model, drawn as
+    the reference draws them)."""
+    if cfg.frontend not in ("none", "audio_stub", "vision_stub"):
         raise NotImplementedError(
-            f"frontend {cfg.frontend!r}: only the audio stub's frame "
-            "embeddings are ported (the vision cross-attention model path "
-            "is not)")
+            f"frontend {cfg.frontend!r}: only the audio and vision stubs' "
+            "frame embeddings are ported")
     tokens = synthetic_tokens(cfg.vocab_size, batch, seq, seed=seed,
                               step=step)
     b = {"tokens": torch.from_numpy(tokens)}

@@ -79,6 +79,8 @@ def assemble_prefill_cache(cfg, out, batch: int, s: int, max_len: int):
         cache["ssm"] = out["cache_ssm"]
     if "cross_kv" in out:  # the decoder layers' keys/values of the encoder
         cache["cross"] = out["cross_kv"]
+    if "frontend_kv" in out:  # each cross group's keys/values of the frames
+        cache["cross"] = out["frontend_kv"]
     cache["pos"].fill_(s)
     return cache
 
@@ -113,9 +115,10 @@ def generate(cfg, params, prompt, steps: int, *, frontend=None,
     (B, steps) tokens on the params' device.
 
     Greedy without a generator; temperature/top-k sampling with one
-    (deterministic in its seed). An encoder/decoder model takes the
-    prompts' ``frontend`` frame embeddings (B, T, F); the prefill keeps
-    the encoder's cross-attention keys and values in the cache. The KV cache is sized ``prompt_len +
+    (deterministic in its seed). An encoder/decoder or grouped
+    cross-attention model takes the prompts' ``frontend`` frame
+    embeddings (B, T, F); the prefill keeps the cross-attention keys and
+    values in the cache. The KV cache is sized ``prompt_len +
     steps`` by default; an explicit smaller ``max_len`` raises instead of
     clamping the cache's write index.
     """

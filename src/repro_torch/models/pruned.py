@@ -27,17 +27,27 @@ from .ssm import ssm_apply
 from .transformer import check_supported, init_cache
 
 
-def refuse_encoder_decoder(cfg, what: str) -> None:
-    """Raise for an encoder/decoder config: a shrunk model keeps the
-    decoder's self-attention and FFN only, so it would run without the
-    encoder and the cross-attention (the reference's shrunk model drops
-    them and its ``forward_pruned`` ignores the frames)."""
+def refuse_cross_attention(cfg, what: str) -> None:
+    """Raise for a config with cross-attention: a shrunk model keeps the
+    self layers' attention and FFN only, so it would run without an
+    encoder/decoder's encoder and cross-attention, or without a grouped
+    cross stack's cross layers (``cross``) and ``frontend_proj`` (the
+    reference's shrunk model drops them and its ``forward_pruned``
+    ignores the frames)."""
     if cfg.encoder_decoder:
         raise NotImplementedError(
             f"{what}: {cfg.name} is an encoder/decoder model, and the "
             "pruned runtime has no encoder and no cross-attention; a "
             "shrunk model would silently lose both (prune it with "
             "oneshot_prune and use the stitched params)")
+    if cfg.cross_attn_every:
+        raise NotImplementedError(
+            f"{what}: {cfg.name} has a cross-attention layer after every "
+            f"{cfg.cross_attn_every} self layers, and the pruned runtime "
+            "has no cross-attention; a shrunk model would silently lose "
+            "its cross layers (params 'cross' and 'frontend_proj') and "
+            "ignore the frames (prune it with oneshot_prune and use the "
+            "stitched params)")
 
 
 @dataclass
@@ -139,9 +149,9 @@ def forward_pruned(pm: PrunedModel, tokens) -> torch.Tensor:
     residual takes ``0.5 * (attn + ssm)`` with both branches live and
     ``0.5 * live`` with one dropped, as the dense block averages them (the
     reference's ``forward_pruned``); raises for a family the port does
-    not run, and for an encoder/decoder model."""
+    not run, and for a model with cross-attention."""
     cfg = pm.cfg
-    refuse_encoder_decoder(cfg, "forward_pruned")
+    refuse_cross_attention(cfg, "forward_pruned")
     check_supported(cfg)
     tokens = tokens.to(pm.globals_["embed"]["table"].device)
     x = embed_tokens(cfg, pm.globals_["embed"], tokens)

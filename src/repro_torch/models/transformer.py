@@ -6,12 +6,15 @@ stacks (attention and SSD heads side by side on the block's normed
 input, their outputs averaged, then the FFN) and Whisper-style
 encoder/decoder models (a non-causal encoder over the audio stub's frame
 embeddings; each decoder block self-attention, then cross-attention to
-the encoder's output, then the FFN).
+the encoder's output, then the FFN), and Llama-3.2-Vision-style stacks
+(``cross_attn_every``: the self layers in groups of ``cross_attn_every``,
+each group followed by one gated cross-attention module over the vision
+stub's patch embeddings).
 
 Per-layer weights are stacked along a leading layer axis, as in the JAX
 package; the forward and decode are Python loops over layers where the
-reference scans. Grouped cross-attention layers over a vision frontend
-(``cross_attn_every``) are not ported yet and are rejected up front.
+reference scans (over groups, then over each group's layers, for the
+grouped cross stacks).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from .layers import (apply_norm, compute_dtype, dense_init, embed_tokens,
 
 def check_supported(cfg) -> None:
     ssm = cfg.family == "ssm"
+    every = cfg.cross_attn_every
     unsupported = {
         "num_experts in the ssm family": cfg.num_experts and ssm,
         "hybrid in the ssm family": cfg.hybrid and ssm,
@@ -41,17 +45,29 @@ def check_supported(cfg) -> None:
             cfg.encoder_decoder and cfg.frontend != "audio_stub",
         "encoder_decoder with experts or SSD heads":
             cfg.encoder_decoder and bool(cfg.num_experts or cfg.ssm_state),
-        "cross_attn_every": cfg.cross_attn_every,
+        "cross_attn_every in the ssm family": every and ssm,
+        "cross_attn_every with hybrid": every and cfg.hybrid,
+        "cross_attn_every with encoder_decoder":
+            every and cfg.encoder_decoder,
+        "num_layers not a multiple of cross_attn_every":
+            every and cfg.num_layers % every,
+        "cross_attn_every without the vision_stub frontend":
+            every and cfg.frontend != "vision_stub",
+        "vision_stub without cross_attn_every":
+            cfg.frontend == "vision_stub" and not every,
+        "audio_stub without encoder_decoder":
+            cfg.frontend == "audio_stub" and not cfg.encoder_decoder,
+        f"the frontend {cfg.frontend!r}":
+            cfg.frontend not in ("none", "audio_stub", "vision_stub"),
         "attention='none'": cfg.attention == "none" and not ssm,
-        "a frontend without encoder_decoder":
-            cfg.frontend != "none" and not cfg.encoder_decoder,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: the port runs dense and MoE self-attention, "
-            f"Mamba-2, hybrid attention + SSD and audio encoder/decoder "
-            f"stacks only (not ported yet: {', '.join(bad)})")
+            f"Mamba-2, hybrid attention + SSD, audio encoder/decoder and "
+            f"grouped vision cross-attention stacks only (unsupported: "
+            f"{', '.join(bad)})")
 
 
 def block_kind(cfg) -> str:
@@ -60,6 +76,13 @@ def block_kind(cfg) -> str:
     if cfg.hybrid:
         return "hybrid"
     return "decoder" if cfg.encoder_decoder else "self"
+
+
+def cross_groups(cfg) -> int:
+    """The number of grouped cross-attention modules: one after every
+    ``cross_attn_every`` self layers (0 without them)."""
+    every = cfg.cross_attn_every
+    return cfg.num_layers // every if every else 0
 
 
 def _encoder_cfg(cfg):
@@ -112,6 +135,14 @@ def model_init(cfg, generator: Optional[torch.Generator] = None,
         params["enc_norm"] = norm_init(cfg)
         params["enc_pos"] = dense_init(
             (cfg.num_frontend_tokens, cfg.d_model), g, in_axis=-1)
+    G = cross_groups(cfg)
+    if G:  # the grouped cross-attention modules (gates 0, as drawn)
+        params["cross"] = {
+            "lnx": norm_init(cfg, G),
+            "xattn": attn_mod.attention_init(cfg, g, G, cross=True)}
+        if cfg.frontend_dim and cfg.frontend_dim != cfg.d_model:
+            params["frontend_proj"] = dense_init(
+                (cfg.frontend_dim, cfg.d_model), g)
     return tree_to(params, dev)
 
 
@@ -218,6 +249,30 @@ def encoder_forward(cfg, params, frontend_embeds):
     return apply_norm(cfg, params["enc_norm"], x)
 
 
+def frontend_kv(cfg, params, frontend_embeds):
+    """Each cross group's keys and values of the frames (B, T, F): cast to
+    the compute dtype, projected by ``frontend_proj`` when the config has
+    one, then ``cross_kv`` per group, stacked to (G, B, T, HKV, D)."""
+    fe = frontend_embeds.to(compute_dtype(cfg))
+    if "frontend_proj" in params:
+        fe = fe @ params["frontend_proj"].to(fe.dtype)
+    xattn = params["cross"]["xattn"]
+    return _stack([attn_mod.cross_kv(cfg, {k: t[g] for k, t in xattn.items()},
+                                     fe)
+                   for g in range(cross_groups(cfg))])
+
+
+def _cross_module(cfg, params, g: int, x, kv):
+    """Cross group ``g`` on the residual stream: ``x + cross_attention(
+    lnx(x))`` against its frames' keys and values, ``kv``'s entry ``g``
+    (``kv``: the groups' ``{k, v}`` stacked to (G, B, T, HKV, D))."""
+    cp = {grp: {k: t[g] for k, t in sub.items()}
+          for grp, sub in params["cross"].items()}
+    hx = apply_norm(cfg, cp["lnx"], x)
+    return x + attn_mod.cross_attention(cfg, cp["xattn"], hx,
+                                        {k: t[g] for k, t in kv.items()})
+
+
 def _stack(trees):
     """Per-layer trees (nested dicts of tensors) -> one tree of stacked
     tensors with a leading layer axis."""
@@ -253,6 +308,14 @@ def forward(cfg, params, tokens: torch.Tensor, *, frontend_embeds=None,
     values stacked to (L, B, T, HKV, D) (a prefill's decode cache keeps
     them as ``cache["cross"]``); its captures are ``attn``, ``xattn``
     and ``ffn``, of the decoder layers only.
+
+    A grouped cross stack (``cross_attn_every``) also takes
+    ``frontend_embeds`` and returns ``frontend_kv`` (G, B, T, HKV, D);
+    cross group ``g`` is applied after self layer ``(g + 1) * every -
+    1``. Captures, hiddens and the cache stay per self layer, and a
+    group's last hidden state is read before its cross module, as the
+    reference's two-level scan collects them; the cross modules'
+    captures are not returned.
     """
     check_supported(cfg)
     build_cache = mode == "prefill"
@@ -271,6 +334,13 @@ def forward(cfg, params, tokens: torch.Tensor, *, frontend_embeds=None,
             cfg, {k: t[i] for k, t in xattn.items()}, enc_out)
             for i in range(cfg.num_layers)])
         out.update(encoder_out=enc_out, cross_kv=cross)
+    every = cfg.cross_attn_every
+    if every:
+        if frontend_embeds is None:
+            raise ValueError(f"{cfg.name}: a cross-attention forward needs "
+                             "frontend_embeds")
+        group_kv = frontend_kv(cfg, params, frontend_embeds.to(dev))
+        out["frontend_kv"] = group_kv
     block = _ssm_block if kind == "ssm" else _self_block
     caps, kv_caches, ssm_caches, auxes, hiddens = [], [], [], [], []
     for i in range(cfg.num_layers):
@@ -290,6 +360,8 @@ def forward(cfg, params, tokens: torch.Tensor, *, frontend_embeds=None,
             auxes.append(aux)
         if collect_hiddens:
             hiddens.append(x)
+        if every and (i + 1) % every == 0:  # the group's cross module
+            x = _cross_module(cfg, params, i // every, x, group_kv)
     x = apply_norm(cfg, params["final_norm"], x)
     out.update(logits=unembed(cfg, params["embed"], params.get("head", {}),
                               x),
@@ -340,7 +412,8 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=None, *, kv_heads=None,
     layers instead of k/v buffers; a hybrid stack's holds both. An
     encoder/decoder stack's also holds ``cross = {k, v}`` of (L, B, T,
     HKV, D), the decoder layers' cross-attention keys and values (zeros
-    here; a prefill fills them).
+    here; a prefill fills them); a grouped cross stack's ``cross`` is
+    (G, B, T, HKV, D), one per cross group.
     """
     check_supported(cfg)
     dev = resolve_device(device)
@@ -367,8 +440,9 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=None, *, kv_heads=None,
     else:
         cache["attn"] = attn_mod.init_kv_cache(cfg, batch, seq_len,
                                                cfg.num_layers, dtype, dev)
-    if kind == "decoder":
-        shape = (cfg.num_layers, batch, cfg.num_frontend_tokens,
+    if kind == "decoder" or cfg.cross_attn_every:
+        n = cfg.num_layers if kind == "decoder" else cross_groups(cfg)
+        shape = (n, batch, cfg.num_frontend_tokens,
                  cfg.num_kv_heads, cfg.resolved_head_dim)
         cache["cross"] = {"k": torch.zeros(shape, dtype=dtype, device=dev),
                           "v": torch.zeros(shape, dtype=dtype, device=dev)}
@@ -383,7 +457,9 @@ def decode_step(cfg, params, cache, tokens):
     per-slot positions (continuous batching): each slot then embeds,
     RoPE-rotates, writes and masks at its own absolute position. The
     cache's k/v (or SSM state and conv) tensors are updated in place; the
-    new cache holds them and ``pos + 1``.
+    new cache holds them and ``pos + 1``. A grouped cross stack applies
+    cross group ``g`` after self layer ``(g + 1) * every - 1`` against
+    ``cache["cross"][g]``, as ``forward`` does.
     """
     pos = cache["pos"]
     positions = None
@@ -393,6 +469,7 @@ def decode_step(cfg, params, cache, tokens):
     x = embed_tokens(cfg, params["embed"], tokens.to(dev),
                      positions=positions)
     kind = block_kind(cfg)
+    every = cfg.cross_attn_every
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
         h = apply_norm(cfg, lp["ln1"], x)
@@ -415,6 +492,8 @@ def decode_step(cfg, params, cache, tokens):
                 {k: t[i] for k, t in cache["cross"].items()})
         h2 = apply_norm(cfg, lp["ln2"], x)
         x = x + _ffn_or_moe(cfg, lp, h2)[0]
+        if every and (i + 1) % every == 0:
+            x = _cross_module(cfg, params, i // every, x, cache["cross"])
     x = apply_norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params["embed"], params.get("head", {}), x)
     return logits, {**cache, "pos": pos + 1}

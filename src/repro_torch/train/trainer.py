@@ -114,9 +114,14 @@ class Trainer:
         return state
 
     def fit(self, state: TrainState, data: Iterator[Dict],
-            steps: int, stop_after: Optional[int] = None) -> TrainState:
+            steps: int, stop_after: Optional[int] = None,
+            save_last: bool = True) -> TrainState:
         """Run up to ``steps`` total steps (absolute), resumable;
-        ``stop_after`` is a simulated preemption point for tests."""
+        ``stop_after`` is a simulated preemption point for tests.
+        ``save_last=False`` writes no checkpoint at step ``steps``, for a
+        caller that removes the checkpoints once the fit returns; those at
+        ``ckpt_every`` multiples before it, and a preemption's, are
+        written as always."""
         done = int(state.step)
         while done < steps:
             if stop_after is not None and done >= stop_after:
@@ -162,7 +167,9 @@ class Trainer:
                 m["step"] = done
                 m["step_time"] = dt
                 self.metrics_log.append(m)
-            if done % self.ckpt_every == 0 or done == steps or self.preempted:
+            last = done == steps
+            if self.preempted or ((last or done % self.ckpt_every == 0)
+                                  and (save_last or not last)):
                 self.ckpt.save(done, state, blocking=self.preempted)
             if self.preempted:
                 print(f"[trainer] preempted at step {done}; checkpointed")

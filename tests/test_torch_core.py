@@ -452,3 +452,21 @@ def test_damping_ladder_names_the_module_and_level_that_failed(capsys):
     assert "healthy" not in out
     assert "healed non-finite prune" in out
     assert np.isfinite(errs).all() and np.isfinite(snaps).all()
+
+
+@pytest.mark.parametrize("bad", [float("inf"), float("nan")])
+def test_a_non_finite_snapshot_is_named_at_its_first_level(bad):
+    """The snapshots' finite check, made where they are, names the module
+    and the first level whose float16 snapshot holds a non-finite value,
+    for a serial (levels, d_in, d_out) and a stacked result alike."""
+    levels = (0, 1, 3, 6)
+    snaps = torch.zeros((2, len(levels), 6, 4), dtype=torch.float16)
+    snaps[1, 2, 5, 3] = bad
+    snaps[1, 3, 0, 0] = bad
+    errs = np.zeros((2, len(levels)), np.float32)
+    ok = database._finite_snapshots(snaps, 2, len(levels))
+    assert ok.tolist() == [[True] * 4, [True, True, False, False]]
+    assert database._non_finite_report(["a", "b"], levels, errs, ok) == [
+        "b float16 snapshot from level 3 (one of removals 2..3)"]
+    assert database._finite_snapshots(snaps[1], 1, len(levels)).tolist() \
+        == [[True, True, False, False]]

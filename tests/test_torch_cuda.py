@@ -24,7 +24,10 @@ loss 1e-3 relative). The train step on the card against the CPU: each
 metric 1e-3 relative (ROADMAP's loss tolerance), masked rows exactly 0;
 a killed and resumed run on the card bit for bit against an
 uninterrupted one. The measured latency table's entries within 20% of
-the profiler's device time a call of their modules.
+the profiler's device time a call of their modules. The smoke models with
+frames (Whisper, Llama-3.2-Vision with one and two cross groups), gates
+open: logits card against CPU 1e-4 of their scale, greedy tokens through
+the cross cache equal.
 """
 import json
 import os
@@ -58,6 +61,7 @@ from repro_torch.models import forward, generate, model_init
 from repro_torch.models.transformer import tree_to
 from repro_torch.optim.adamw import tree_leaves
 from repro_torch.runtime.costmodel import HardwareSpec, InferenceEnv
+from repro_torch.runtime.device import to_host
 from repro_torch.train import (Trainer, make_train_state, make_train_step)
 
 
@@ -87,6 +91,19 @@ def test_hessian_accum_kernel_matches_plain(cuda_device, shape, dtype):
         torch.testing.assert_close(got, want, atol=1e-4 * n ** 0.5,
                                    rtol=1e-4)
     assert hessian_accum.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 999, 1000, 1001, 2000, 3500])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32,
+                                   torch.int64])
+def test_to_host_equals_cpu_at_chunk_edges(cuda_device, n, dtype):
+    """The staged device-to-host copy gives ``.cpu()``'s bits at every
+    edge of its 1000-element chunks (one buffer, two, a ragged tail)."""
+    x = torch.arange(n * 3, device=cuda_device).reshape(n, 3).to(dtype)
+    got = to_host(x, chunk=1000)
+    assert got.shape == (n, 3)
+    assert torch.equal(torch.from_numpy(got), x.cpu())
 
 
 def _hessian_x(n, d, dtype, device, seed, offset=False):
@@ -737,6 +754,42 @@ def test_hybrid_model_on_the_card_matches_the_cpu(cuda_device):
     assert gpu[2] == pytest.approx(cpu[2], rel=1e-3)
     for a, w in zip(gpu[3], cpu[3]):
         assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+# the smoke models with frames, their cross-attention gates opened: the
+# reference's smoke Whisper, its smoke Llama-3.2-Vision (one cross group),
+# and the same with two groups over frames of 96 (``frontend_proj``)
+CROSS_MODELS = [("whisper-large-v3", {}),
+                ("llama-3.2-vision-11b", {}),
+                ("llama-3.2-vision-11b", {"frontend_dim": 96,
+                                          "num_layers": 4})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,changes", CROSS_MODELS,
+                         ids=["whisper", "vlm", "vlm-two-groups"])
+def test_cross_attention_models_on_the_card_match_the_cpu(cuda_device, arch,
+                                                          changes):
+    """A smoke model with frames in fp32, gates at 1.0 (at their initial 0
+    no frame reaches a logit): the card's logits within 1e-4 of their
+    scale of the CPU's, and greedy ``generate(frontend=...)`` through the
+    cross cache equal to the CPU's (chip_smoke phase 3's tolerances)."""
+    cfg = smoke_config(arch).replace(dtype="float32", **changes)
+    params = model_init(cfg, torch.Generator().manual_seed(6), device="cpu")
+    owner = params["cross"] if "cross" in params else params["layers"]
+    owner["xattn"]["gate"].fill_(1.0)
+    batch = make_batch_np(cfg, 4, 48, seed=6)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = tree_to(params, dev)
+        tokens, frames = batch["tokens"].to(dev), batch["frontend"].to(dev)
+        logits = forward(cfg, p, tokens, frontend_embeds=frames)["logits"]
+        toks = generate(cfg, p, tokens[:2, :32], 12, frontend=frames[:2])
+        out[str(dev)] = (logits.cpu(), toks.cpu())
+    cpu, gpu = out["cpu"], out[str(cuda_device)]
+    assert float((gpu[0] - cpu[0]).abs().max()) <= 1e-4 * float(
+        cpu[0].abs().max())
+    assert torch.equal(gpu[1], cpu[1])
 
 
 TRAIN_CFG = GPT2_SMALL.replace(

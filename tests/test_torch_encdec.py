@@ -150,7 +150,7 @@ def params(ref):
 # ----------------------------------------------------------------------
 
 def test_whisper_is_ported_and_its_smoke_config_is_the_references():
-    assert configs.NOT_PORTED == ("llama-3.2-vision-11b",)
+    assert configs.NOT_PORTED == ()
     full = configs.get_config("whisper-large-v3")
     assert full is configs.WHISPER_LARGE_V3
     assert full == port_cfg(ref_get_config("whisper-large-v3"))
@@ -211,8 +211,13 @@ def test_frontend_and_calibration_batches_are_the_references_bits(dtype):
 
 
 def test_vision_frontend_batches_still_raise():
-    with pytest.raises(NotImplementedError, match="vision"):
-        make_batch_np(CFG.replace(frontend="vision_stub"), 2, 8)
+    """The vision stub's frames are drawn as the audio stub's
+    (tests/test_torch_vlm.py holds them to the reference's bits); a
+    frontend that is neither stub still raises."""
+    got = make_batch_np(CFG.replace(frontend="vision_stub"), 2, 8)
+    assert tuple(got["frontend"].shape) == (2, 16, 128)
+    with pytest.raises(NotImplementedError, match="audio and vision stubs"):
+        make_batch_np(CFG.replace(frontend="image_patches"), 2, 8)
 
 
 # ----------------------------------------------------------------------
@@ -447,7 +452,13 @@ def test_serving_engine_and_grouped_cross_layers_are_refused(params):
     with pytest.raises(NotImplementedError):
         DenseServeModel(CFG, params, 64)
     check_supported(CFG)
-    for kw in ({"cross_attn_every": 5}, {"frontend": "vision_stub"},
-               {"encoder_decoder": False}, {"num_experts": 4}):
-        with pytest.raises(NotImplementedError):
+    for kw, why in (
+            ({"cross_attn_every": 5},
+             "cross_attn_every with encoder_decoder"),
+            ({"frontend": "vision_stub"},
+             "encoder_decoder without the audio_stub frontend.*"
+             "vision_stub without cross_attn_every"),
+            ({"encoder_decoder": False}, "audio_stub without encoder_decoder"),
+            ({"num_experts": 4}, "encoder_decoder with experts")):
+        with pytest.raises(NotImplementedError, match=why):
             check_supported(CFG.replace(**kw))

@@ -59,7 +59,8 @@ def test_port_files_are_found():
             "manager.py", "pipeline.py", "train.py", "integrity.py",
             "report.py", "torch_quickstart.py", "torch_serve_pruned.py",
             "torch_gradual_pruning.py", "torch_oneshot_prune_arch.py",
-            "whisper_large_v3.py", "hymba_1p5b.py"} <= names
+            "whisper_large_v3.py", "hymba_1p5b.py",
+            "llama32_vision_11b.py"} <= names
 
 
 def _example_main(path: pathlib.Path):

@@ -152,7 +152,7 @@ def _as_port_db(ref_db):
 # ----------------------------------------------------------------------
 
 def test_hymba_is_ported_and_its_smoke_config_is_the_references():
-    assert configs.NOT_PORTED == ("llama-3.2-vision-11b",)
+    assert configs.NOT_PORTED == ()
     full = configs.get_config("hymba-1.5b")
     assert full == port_cfg(ref_get_config("hymba-1.5b"))
     assert (full.d_model, full.num_heads, full.num_kv_heads, full.head_dim,

@@ -107,13 +107,24 @@ def test_model_init_is_seeded_and_shaped():
 
 
 def test_unported_families_are_rejected():
-    """MoE and the hybrid block are ported (tests/test_torch_moe.py,
-    tests/test_torch_hybrid.py): a hybrid model initialises with its SSD
-    leaves beside the attention's. Cross-attention is not ported."""
+    """MoE, the hybrid block and grouped cross layers are ported
+    (tests/test_torch_moe.py, tests/test_torch_hybrid.py,
+    tests/test_torch_vlm.py): a hybrid model initialises with its SSD
+    leaves beside the attention's, a grouped cross stack with one
+    ``cross`` module per group of ``cross_attn_every`` layers. A depth
+    that is not a multiple of ``cross_attn_every`` is refused."""
     hybrid = model_init(port_cfg(REF_TINY).replace(hybrid=True,
                                                    ssm_state=16),
                         device="cpu")
     assert {"attn", "ffn", "ssm"} <= set(hybrid["layers"])
-    with pytest.raises(NotImplementedError, match="cross_attn_every"):
-        model_init(port_cfg(REF_TINY).replace(cross_attn_every=2),
-                   device="cpu")
+    vlm = port_cfg(REF_TINY).replace(
+        num_layers=4, cross_attn_every=2, frontend="vision_stub",
+        num_frontend_tokens=8, frontend_dim=REF_TINY.d_model)
+    grouped = model_init(vlm, device="cpu")
+    assert tuple(grouped["cross"]["lnx"]["scale"].shape) == \
+        (2, REF_TINY.d_model)
+    assert tuple(grouped["cross"]["xattn"]["gate"].shape) == (2,)
+    assert "frontend_proj" not in grouped
+    with pytest.raises(NotImplementedError,
+                       match="num_layers not a multiple of cross_attn_every"):
+        model_init(vlm.replace(num_layers=3), device="cpu")

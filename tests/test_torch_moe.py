@@ -172,8 +172,8 @@ def test_config_and_smoke_forward_match_reference(arch):
         [dataclasses.asdict(s) for s in ref_shapes_for(arch)]
     params = ref_model_init(ref_smoke, jax.random.key(0))[0]
     tokens = np.random.default_rng(1).integers(0, smoke.vocab_size, (2, 40))
-    frames = None  # an encoder/decoder's frame embeddings
-    if smoke.encoder_decoder:
+    frames = None  # an encoder/decoder's or a VLM's frame embeddings
+    if smoke.frontend != "none":
         frames = np.random.default_rng(2).standard_normal(
             (2, smoke.num_frontend_tokens, smoke.frontend_dim)).astype(
                 np.float32)
@@ -217,8 +217,9 @@ def test_smoke_model_sizes_match_the_reference_bench(arch, kw, count):
 def test_every_registry_config_runs_the_one_shot_path(arch):
     """``ARCHS`` holds the configs the port runs: each smoke config goes
     through ``oneshot_prune`` (costmodel table), meets its target, and
-    shrinks to a model with finite logits; an encoder/decoder model,
-    which ``shrink`` refuses, gives finite logits stitched."""
+    shrinks to a model with finite logits; a model with cross-attention
+    (encoder/decoder or grouped cross layers), which ``shrink`` refuses,
+    gives finite logits stitched."""
     cfg = configs.smoke_config(arch).replace(dtype="float32")
     params = model_init(cfg, device="cpu")
     calib = calibration_batches(cfg, 4, 32, batch=4)
@@ -227,8 +228,8 @@ def test_every_registry_config_runs_the_one_shot_path(arch):
                         device="cpu")
     v = res.variants[1.5]
     assert v.speedup >= 1.5 and np.isfinite(v.calib_loss)
-    if cfg.encoder_decoder:
-        with pytest.raises(NotImplementedError, match="encoder/decoder"):
+    if cfg.encoder_decoder or cfg.cross_attn_every:
+        with pytest.raises(NotImplementedError, match="cross-attention"):
             shrink(cfg, v.params, res.db, v.assignment, device="cpu")
         assert torch.isfinite(forward(
             cfg, v.params, calib[0]["tokens"],

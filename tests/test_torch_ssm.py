@@ -325,10 +325,14 @@ def test_unsupported_families_still_raise():
     check_supported(MAMBA2_2P7B)
     with pytest.raises(NotImplementedError, match="hybrid in the ssm family"):
         check_supported(CFG.replace(hybrid=True))
-    for kw in ({"num_experts": 4},
-               {"cross_attn_every": 5}, {"frontend": "vision_stub"},
-               {"family": "dense"}, {"ssm_state": 0}):
-        with pytest.raises(NotImplementedError):
+    for kw, why in (({"num_experts": 4}, "num_experts in the ssm family"),
+                    ({"cross_attn_every": 5},
+                     "cross_attn_every in the ssm family"),
+                    ({"frontend": "vision_stub"},
+                     "vision_stub without cross_attn_every"),
+                    ({"family": "dense"}, "ssm_state outside"),
+                    ({"ssm_state": 0}, "family='ssm' without ssm_state")):
+        with pytest.raises(NotImplementedError, match=why):
             check_supported(CFG.replace(**kw))
 
 

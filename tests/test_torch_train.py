@@ -39,8 +39,9 @@ from repro.train.train_step import make_train_state as ref_make_train_state
 from repro.train.train_step import make_train_step as ref_make_train_step
 from repro_torch.checkpoint.manager import (CheckpointManager,
                                             CheckpointWriteError,
-                                            file_sha256, npz_bytes,
-                                            restore_pytree, save_pytree)
+                                            file_sha256, load_json,
+                                            npz_bytes, restore_pytree,
+                                            save_pytree)
 from repro_torch.configs import ModelConfig
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.database import apply_assignment, build_database
@@ -542,6 +543,26 @@ def test_trainer_resume_after_preemption(tmp_path):
                                              start_step=killed_at), steps=25)
     assert int(state2.step) == 25
     t2.ckpt.close()
+
+
+@pytest.mark.parametrize("save_last", [True, False])
+def test_fit_writes_the_last_checkpoint_only_if_asked(tmp_path, save_last):
+    """``save_last=False`` leaves out the checkpoint at the fit's last
+    step and keeps those at ``ckpt_every`` multiples before it, with the
+    same final state."""
+    params = model_init(CFG, device="cpu")
+    tcfg = TrainConfig(learning_rate=1e-3, total_steps=6, warmup_steps=2)
+    tr = Trainer(CFG, tcfg, ckpt_dir=str(tmp_path), ckpt_every=2,
+                 device="cpu")
+    state = tr.fit(tr.init_or_restore(params),
+                   synthetic_stream(CFG, 8, 32, seed=3), steps=5,
+                   save_last=save_last)
+    tr.ckpt.close()
+    assert int(state.step) == 5
+    steps = [c["step"] for c in
+             load_json(os.path.join(str(tmp_path), "manifest.json"))
+             ["checkpoints"]]
+    assert steps == ([2, 4, 5] if save_last else [2, 4])
 
 
 def test_kill_and_resume_is_bit_identical(member, tmp_path):
