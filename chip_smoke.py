@@ -238,6 +238,25 @@ Phases (any failure exits non-zero and prints no result):
    every member keeps the dense cross module. Checks as phase 14's, the
    decoding through ``generate(frontend=...)`` and the grouped cross
    cache (JSON ``vlm_launches``).
+16. latency and search. (b) and (c) run right after phase 4, on its
+   database and measured table: the serial SPDY search
+   (``search_family(batched=False)``) against the batched one for
+   phase 4's targets, bit for bit on the analytic score and within 1e-6
+   relative scored by the calibration loss (serial ``eval_fn`` against
+   batched ``eval_batched``); phase 4's measured table built through the
+   persistent latency cache in a temporary directory and built again (a
+   hit: no timed call, the same table bit for bit, a key that names the
+   card, the search's assignments unchanged), each build's seconds
+   printed. (a) runs after phase 15, on the first self layer of its
+   Llama-3.2-Vision-11B: the FFN module (14336 rows, gs 1) and the
+   KV-group module (8 groups of 512 rows) each built by
+   ``build_module_db`` on the plain and on the live-set-compacted route,
+   their orders equal, errors within 1e-5 relative, snapshots within one
+   float16 rounding, the compacted ``perm`` covering the live set; the
+   downdate's launches with ``d_live`` below the working rows counted on
+   the path, and the kernel checked and timed at the first and the last
+   compacted FFN widths (JSON ``compact_launches``, and two
+   ``other_shapes`` rows of obs_downdate).
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 product on the
 card is a full fp32 product and the fp32 tolerances below hold. The train
@@ -591,23 +610,29 @@ TIMED_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
 
 
-def time_downdate(torch, kernel, plain, W, H, A, KW, KH, keep, err):
+def time_downdate(torch, kernel, plain, W, H, A, KW, KH, keep, err,
+                  d_live=None):
     """Time ``kernel`` (obs_downdate, in place on copies of W and H)
     beside ``plain`` by ``time_ms``; the bound counts each element of W
-    and Hinv read and written once and the factors and keep read once,
-    against a multiply-subtract and two mask multiplies each on the fp32
-    pipes. No single PyTorch call computes the function."""
+    and Hinv written once and each of their live prefix (all of it
+    without ``d_live``) read once, the factors and keep read once,
+    against a multiply-subtract and two mask multiplies for each live
+    element on the fp32 pipes. No single PyTorch call computes the
+    function."""
     M, d_in, d_out = W.shape
     gs = A.shape[-1]
+    live = d_in if d_live is None else d_live
     Wc, Hc = W.clone(), H.clone()
     row = {"max_abs_err": err, "library_ms": None,
-           "ms": time_ms(lambda: kernel(Wc, Hc, A, KW, KH, keep)),
-           "plain_ms": time_ms(lambda: plain(W, H, A, KW, KH, keep))}
-    nbytes = 4.0 * M * (2 * d_in * (d_in + d_out) + d_in * gs
-                        + gs * (d_in + d_out) + d_in)
-    ops = M * d_in * (d_in + d_out) * (2.0 * gs + 2.0)
+           "ms": time_ms(lambda: kernel(Wc, Hc, A, KW, KH, keep, d_live)),
+           "plain_ms": time_ms(lambda: plain(W, H, A, KW, KH, keep,
+                                             d_live))}
+    nbytes = 4.0 * M * (live * (live + d_out) + d_in * (d_in + d_out)
+                        + live * gs + gs * (live + d_out) + live)
+    ops = M * live * (live + d_out) * (2.0 * gs + 2.0)
     row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops, PEAK_FP32)
-    print(f"obs_downdate M={M} d_in={d_in} d_out={d_out} gs={gs}: kernel "
+    print(f"obs_downdate M={M} d_in={d_in} d_out={d_out} gs={gs}"
+          f"{'' if d_live is None else f' d_live={d_live}'}: kernel "
           f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
           f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
           f"{nbytes / row['ms'] / 1e6:.0f} GB/s, "
@@ -1781,7 +1806,7 @@ def run_main_path(torch, kernels):
           f"lower the calibration loss, so one member may win every target)")
     fam = check_prior_family(torch, cfg, params, calib, res, targets)
     check_table_spread(cfg, env, res)
-    return launches, params, calib, res.db, fam
+    return launches, cfg, params, calib, res.db, res.table, fam
 
 
 def check_prior_family(torch, cfg, params, calib, res, targets):
@@ -3812,12 +3837,302 @@ def run_vlm_path(torch, kernels):
             del a, b
     prompt = tokens[:2, :ENCDEC_PROMPT]
     frames = calib[0]["frontend"][:2].float().cuda()
-    del res, calib
+    del res
     torch.cuda.empty_cache()
     cfg32 = cfg.replace(dtype="float32")
     for what, p in (("dense", params), (f"{top}x member", member)):
         check_cross_decode(torch, cfg32, p, prompt, frames, f"VLM {what}")
-    return launches
+    return launches, cfg, params, calib
+
+
+# phase 16: latency and search. (b) and (c) run right after phase 4, on its
+# GPT-2 database and measured table; (a) runs after phase 15, on the first
+# self layer of its Llama-3.2-Vision-11B: the FFN module (14336 rows, gs
+# 1, d_out 4096; 15 segments, a downdate on the live prefix of a padded
+# working set) and the KV-group module (8 groups of 512 wo_in rows, gs
+# 512; 6 segments, compacted at 6 live groups), each built on the plain
+# and on the compacted route at M = 1. The schedule predicts the
+# compacted FFN run's Hinv traffic at 0.443 of the plain run's
+COMPACT_KERNELS = ("obs_downdate",)
+# one float16 rounding of either side: |a - b| <= 2^-10 max(|a|, |b|),
+# plus float16's smallest subnormal
+F16_ULP = 2.0 ** -10
+F16_TINY = 2.0 ** -24
+
+
+def run_search_paths(torch, cfg, params, calib, db, table):
+    """Phase 16 (b): the serial SPDY search (``batched=False``: the
+    scalar DP, candidates scored one by one) against the batched one on
+    phase 4's database and measured table, for its targets: bit for bit
+    on the analytic score, scores within 1e-6 relative when scored by the
+    calibration loss (serial ``eval_fn`` against batched
+    ``eval_batched``)."""
+    from repro_torch.core.database import SnapshotCache
+    from repro_torch.core.oneshot import calib_loss_fn, make_batched_eval
+    from repro_torch.core.spdy import search_family
+
+    seconds = {}
+
+    def timed(label, **kw):
+        t0 = time.perf_counter()
+        out = search_family(db, table, MAIN_TARGETS, steps=48, pop=16,
+                            seed=0, **kw)
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t0
+        return out
+
+    batched = timed("analytic batched")
+    serial = timed("analytic serial", batched=False)
+    for t in MAIN_TARGETS:
+        b, s = batched[t], serial[t]
+        print(f"  analytic {t}x: serial speedup {s.speedup:.4f}x score "
+              f"{s.score!r}, batched {b.speedup:.4f}x score {b.score!r}, "
+              f"evals {s.n_evals}/{b.n_evals}")
+        check(s.assignment == b.assignment and s.score == b.score
+              and s.history == b.history and s.runtime == b.runtime,
+              f"serial search at {t}x is not the batched search bit for "
+              "bit on the analytic score")
+    cache = SnapshotCache(cfg, db, device="cuda")
+    loss = calib_loss_fn(cfg, calib[:1], device="cuda")
+    lb = timed("loss batched", eval_batched=make_batched_eval(
+        cfg, params, cache, calib[:1], device="cuda"))
+    ls = timed("loss serial", batched=False,
+               eval_fn=lambda a: loss(cache.apply(params, a)))
+    for t in MAIN_TARGETS:
+        b, s = lb[t], ls[t]
+        rel = abs(s.score - b.score) / max(abs(b.score), 1e-30)
+        print(f"  loss-scored {t}x: serial speedup {s.speedup:.4f}x score "
+              f"{s.score:.6f}, batched {b.speedup:.4f}x score "
+              f"{b.score:.6f} (relative {rel:.3e}), same assignment: "
+              f"{s.assignment == b.assignment}, evals {s.n_evals}/"
+              f"{b.n_evals}")
+        check(rel <= 1e-6, f"loss-scored serial search at {t}x: score "
+              f"{s.score} against the batched {b.score}")
+        check(s.speedup >= t and b.speedup >= t,
+              f"loss-scored search at {t}x: a target not met")
+    print("search seconds: " + json.dumps(
+        {k: round(v, 4) for k, v in seconds.items()}))
+    del cache
+    torch.cuda.empty_cache()
+    return seconds
+
+
+def run_cache_path(torch, cfg, db, table):
+    """Phase 16 (c): phase 4's measured table built through the
+    persistent latency cache in a temporary directory, then again: the
+    second call times nothing (``TIMING_STATS["reps"]`` unchanged) and
+    gives the first table bit for bit, the stored key names the card, and
+    the search on the cached table gives the fresh table's
+    assignments."""
+    import glob
+    import shutil
+    import tempfile
+
+    from repro_torch.core import latency
+    from repro_torch.core.spdy import search_family
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_latency_")
+    try:
+        def build():
+            t0 = time.perf_counter()
+            tab = latency.build_table(cfg, table.env, "measure",
+                                      device="cuda", cache_dir=tmp,
+                                      **LATENCY_KW)
+            torch.cuda.synchronize()
+            return tab, time.perf_counter() - t0, \
+                latency.TIMING_STATS["reps"]
+
+        reps0 = latency.TIMING_STATS["reps"]
+        fresh, fresh_s, reps1 = build()
+        hit, hit_s, reps2 = build()
+        same = (fresh.base == hit.base and sorted(fresh.grids) ==
+                sorted(hit.grids) and all(
+                    (fresh.grids[k] == hit.grids[k]).all()
+                    and (fresh.times[k] == hit.times[k]).all()
+                    for k in fresh.grids))
+        files = glob.glob(os.path.join(tmp, "lat_*.json"))
+        with open(files[0]) as f:
+            device = json.load(f)["key"]["device"]
+        print(f"latency cache: fresh measurement {fresh_s:.4f} s "
+              f"({reps1 - reps0} timed calls), hit {hit_s:.4f} s "
+              f"({reps2 - reps1} timed calls), tables bit-equal: {same}, "
+              f"{len(files)} file(s), stored device {device}")
+        check(reps1 > reps0, "latency cache: the first build timed nothing")
+        check(reps2 == reps1, "latency cache: the second build timed "
+              "something (not a hit)")
+        check(same, "latency cache: the cached table is not the fresh one")
+        check(len(files) == 1 and device.get("name") ==
+              torch.cuda.get_device_name(0)
+              and device.get("capability") ==
+              list(torch.cuda.get_device_capability(0)),
+              f"latency cache: the stored key does not name the card "
+              f"({device})")
+        a = search_family(db, fresh, MAIN_TARGETS, steps=48, pop=16, seed=0)
+        b = search_family(db, hit, MAIN_TARGETS, steps=48, pop=16, seed=0)
+        for t in MAIN_TARGETS:
+            check(a[t].assignment == b[t].assignment
+                  and a[t].runtime == b[t].runtime,
+                  f"latency cache: the search at {t}x differs on the "
+                  "cached table")
+        print(f"latency cache: the search's assignments on the cached "
+              f"table are the fresh table's at {MAIN_TARGETS}")
+        return {"fresh_s": fresh_s, "hit_s": hit_s}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def snapshots_within_f16(torch, a, b):
+    """(levels bit-equal, largest difference over the levels that are
+    not): every element of two float16 snapshot stacks within one float16
+    rounding of either, checked on the card a level at a time."""
+    equal, worst = 0, 0.0
+    for i in range(a.shape[0]):
+        if (a[i] == b[i]).all():
+            equal += 1
+            continue
+        x = torch.from_numpy(a[i]).cuda().float()
+        y = torch.from_numpy(b[i]).cuda().float()
+        d = (x - y).abs()
+        check(bool((d <= F16_ULP * torch.maximum(x.abs(), y.abs())
+                    + F16_TINY).all()),
+              f"compacted snapshot at level {i} differs by more than one "
+              "float16 rounding")
+        worst = max(worst, float(d.max()))
+    return equal, worst
+
+
+def run_compact_path(torch, kernels, cfg, params, calib):
+    """Phase 16 (a): the plain and the live-set-compacted database of
+    each module of phase 15's first self layer, at M = 1 (``build_module_db``,
+    ``compact=False`` and ``True``), held to each other; the downdate's
+    launches on the live prefix counted on the path; the kernel checked
+    and timed at the first and last compacted FFN widths."""
+    import numpy as np
+    from repro_torch.core import database, obs
+    from repro_torch.core.hessian import collect_hessians
+    from repro_torch.core.structures import level_grid, registry
+    from repro_torch.kernels import obs_downdate_plain
+
+    t0 = time.perf_counter()
+    hess = collect_hessians(cfg, params, calib, device="cuda")
+    mods = [m for m in registry(cfg) if m.layer == 0]
+    hess = {m.name: hess[m.name] for m in mods}
+    torch.cuda.synchronize()
+    print(f"compaction: Hessians of {cfg.name} ({cfg.num_layers} self "
+          f"layers) in {time.perf_counter() - t0:.3f} s; modules "
+          f"{[(m.name, m.n_structures, m.group_size) for m in mods]}")
+
+    # instrumentation of this phase only: the downdate's calls with a live
+    # prefix shorter than the working rows, and the compacted core's perm
+    real_downdate, real_compact = obs.obs_downdate, \
+        database.prune_structured_compact
+    live = {"launches": 0, "widths": set()}
+    perms = []
+
+    def downdate(W, Hinv, *args, d_live=None):
+        if d_live is not None and d_live < W.shape[1]:
+            live["launches"] += 1
+            live["widths"].add((W.shape[1], d_live))
+        return real_downdate(W, Hinv, *args, d_live=d_live)
+
+    def compact(*args, **kw):
+        res = real_compact(*args, **kw)
+        perms.append(res.perm.cpu().numpy())
+        return res
+
+    out = {}
+    kernels.reset_launch_counts()
+    obs.obs_downdate, database.prune_structured_compact = downdate, compact
+    try:
+        for mod in mods:
+            lv = level_grid(mod)
+            segs = obs._compaction_schedule(mod.n_structures, mod.group_size,
+                                            max(lv), lv)
+            runs = {}
+            for route in ("plain", "compact"):
+                before = kernels.obs_downdate.launches
+                live_before = live["launches"]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runs[route] = database.build_module_db(
+                    cfg, params, mod, hess[mod.name],
+                    compact=route == "compact")
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                n = kernels.obs_downdate.launches - before
+                n_live = live["launches"] - live_before
+                out[f"{mod.kind}_{route}_s"] = secs
+                out[f"{mod.kind}_{route}_launches"] = n
+                print(f"  {mod.name} {route}: {secs:.3f} s, {n} obs_downdate "
+                      f"launches ({n_live} on a live prefix), "
+                      f"{len(lv)} levels")
+            plain, comp = runs["plain"], runs["compact"]
+            perm = perms[-1]
+            start, _, work_n, _ = segs[-1]
+            equal, worst = snapshots_within_f16(torch, plain.snapshots,
+                                                comp.snapshots)
+            err = float(np.max(np.abs(comp.errors - plain.errors)
+                               / np.maximum(np.abs(plain.errors), 1e-30)))
+            print(f"  {mod.name}: {len(segs)} segments, working structures "
+                  f"{[w for _, _, w, _ in segs]}; orders equal: "
+                  f"{np.array_equal(plain.order, comp.order)}; errors "
+                  f"within {err:.3e} relative; snapshot levels bit-equal "
+                  f"{equal} of {len(lv)} (largest difference {worst:.3e}); "
+                  f"perm {len(perm)} slots; compacted/plain seconds "
+                  f"{out[f'{mod.kind}_compact_s'] / out[f'{mod.kind}_plain_s']:.4f}")
+            check(len(segs) > 1, f"{mod.name}: the schedule never compacts")
+            check(np.array_equal(plain.order, comp.order),
+                  f"{mod.name}: compacted removal order differs")
+            check(err <= 1e-5, f"{mod.name}: compacted errors differ by "
+                  f"{err:.3e} relative")
+            check(len(perm) == work_n and len(set(perm.tolist())) == work_n
+                  and set(comp.order[start:].tolist()) <= set(perm.tolist()),
+                  f"{mod.name}: the perm does not cover the live set")
+            del runs, plain, comp
+    finally:
+        obs.obs_downdate, database.prune_structured_compact = \
+            real_downdate, real_compact
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    print(f"compaction launches: {launches}; on a live prefix "
+          f"{live['launches']} at (working rows, d_live) "
+          f"{sorted(live['widths'])[:2]} ... {sorted(live['widths'])[-1:]}")
+    for name in COMPACT_KERNELS:
+        check(launches[name] > 0, f"{name} never launched on phase 16")
+    check(live["launches"] > 0, "obs_downdate never launched with d_live "
+          "below the working rows on phase 16")
+    del hess
+    torch.cuda.empty_cache()
+
+    # the kernel at the first and the last compacted FFN widths
+    ffn = next(m for m in mods if m.kind == "ffn")
+    lv = level_grid(ffn)
+    segs = obs._compaction_schedule(ffn.n_structures, 1, max(lv), lv)
+    d_out = int(params["layers"]["ffn"]["wd"].shape[-1])
+    g = torch.Generator(device="cuda").manual_seed(16)
+    rows = []
+    for _, _, work_n, live_n in (segs[1], segs[-1]):
+        W = torch.randn((1, work_n, d_out), device="cuda", generator=g)
+        H = torch.randn((1, work_n, work_n), device="cuda", generator=g)
+        A = torch.randn((1, work_n, 1), device="cuda", generator=g)
+        KW = torch.randn((1, 1, d_out), device="cuda", generator=g)
+        KH = torch.randn((1, 1, work_n), device="cuda", generator=g)
+        keep = (torch.rand((1, work_n), device="cuda",
+                           generator=g) > 0.3).float()
+        want = obs_downdate_plain(W, H, A, KW, KH, keep, live_n)
+        got = kernels.obs_downdate(W.clone(), H.clone(), A, KW, KH, keep,
+                                   live_n)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        check(all(bool(torch.allclose(a, b, atol=1e-5, rtol=1e-5))
+                  for a, b in zip(got, want)),
+              f"obs_downdate disagrees at (1, {work_n}, {d_out}, 1) "
+              f"d_live={live_n}")
+        row = time_downdate(torch, kernels.obs_downdate, obs_downdate_plain,
+                            W, H, A, KW, KH, keep, err, d_live=live_n)
+        rows.append({"shape": [1, work_n, d_out, 1], "d_live": live_n,
+                     **{key: row[key] for key in TIMED_KEYS}})
+        del W, H, A, KW, KH, keep, want, got
+    torch.cuda.empty_cache()
+    return launches, out, rows
 
 
 def _leaves(tree):
@@ -3879,8 +4194,17 @@ def main() -> int:
           f"({time.perf_counter() - t0:.2f} s)")
 
     t0 = time.perf_counter()
-    launches, params, calib, db, fam = run_main_path(torch, kernels)
+    launches, cfg, params, calib, db, table, fam = run_main_path(torch,
+                                                                 kernels)
     print(f"phase 4: main path done ({time.perf_counter() - t0:.2f} s)")
+
+    t0 = time.perf_counter()
+    run_search_paths(torch, cfg, params, calib, db, table)
+    run_cache_path(torch, cfg, db, table)
+    phase16_bc = time.perf_counter() - t0
+    print(f"phase 16 (b, c): serial search and latency cache done "
+          f"({phase16_bc:.2f} s)")
+    del cfg, table
 
     t0 = time.perf_counter()
     launches.update({name: n for name, n in serve_family(
@@ -3947,8 +4271,21 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    vlm_launches = run_vlm_path(torch, kernels)
+    vlm_launches, vlm_cfg, vlm_params, vlm_calib = run_vlm_path(torch,
+                                                                kernels)
     print(f"phase 15: VLM path done ({time.perf_counter() - t0:.2f} s)")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    compact_launches, compact_s, compact_rows = run_compact_path(
+        torch, kernels, vlm_cfg, vlm_params, vlm_calib)
+    records["obs_downdate"]["other_shapes"].extend(compact_rows)
+    del vlm_params, vlm_calib
+    print(f"phase 16 (a): compacted databases done "
+          f"({time.perf_counter() - t0:.2f} s; with (b, c) "
+          f"{time.perf_counter() - t0 + phase16_bc:.2f} s); seconds "
+          + json.dumps({k: round(v, 3) if isinstance(v, float) else v
+                        for k, v in compact_s.items()}))
 
     for name, rec in records.items():
         rec["launches"] = launches[name]
@@ -3960,6 +4297,7 @@ def main() -> int:
         rec["hybrid_launches"] = hybrid_launches[name]
         rec["encdec_launches"] = encdec_launches[name]
         rec["vlm_launches"] = vlm_launches[name]
+        rec["compact_launches"] = compact_launches[name]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     # flash attention's and the SSD passes' device-only times ride beside
@@ -3968,13 +4306,14 @@ def main() -> int:
     # beside their main shape, and each kernel's launches on the MoE path
     # (phase 7), on the trainer's path (phase 8) and in the family engines'
     # runs A (phases 9 and 10), the MoE family run (phase 11), the Hymba
-    # path (phase 13), the Whisper path (phase 14) and the VLM path (phase
-    # 15) beside those on its own path (phases 4-6; the SSD backward's own
-    # path is phase 10)
+    # path (phase 13), the Whisper path (phase 14), the VLM path (phase
+    # 15) and the compacted databases (phase 16) beside those on its own
+    # path (phases 4-6; the SSD backward's own path is phase 10)
     extra = ["note", "device_ms", "library_device_ms", "passes_ms",
              "other_shapes", "moe_launches", "train_launches",
              "family_launches", "ssm_family_launches", "moe_family_launches",
-             "hybrid_launches", "encdec_launches", "vlm_launches"]
+             "hybrid_launches", "encdec_launches", "vlm_launches",
+             "compact_launches"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in records.values()]}))
     print(card_line())

@@ -7,6 +7,9 @@ n_structures, d_out, levels)`` signature — all attention layers, all FFN
 layers — run Algorithm 1 as one stack (``obs.prune_structured_batched``),
 one fused downdate launch per step for the whole stack. ``batched=False``
 keeps the serial per-module path as the equivalence reference.
+``compact=True`` runs either route through the live-set-compacted cores
+(``obs.prune_structured[_batched]_compact``): the same removal orders,
+snapshots in the same layout, a downdate that shrinks with the live set.
 
 ``SnapshotCache`` keeps the stacked snapshots on the device so SPDY's
 per-candidate stitch is one gather + scatter per module kind; a per-expert
@@ -24,7 +27,8 @@ import torch
 from ..runtime.device import (DeviceLike, resolve_device, synchronize,
                               to_host)
 from .obs import (build_hessian, module_drop_error, module_drop_errors,
-                  prune_structured, prune_structured_batched)
+                  prune_structured, prune_structured_batched,
+                  prune_structured_batched_compact, prune_structured_compact)
 from .structures import (UNITS, PrunableModule, copy_tree, get_matrix,
                          level_grid, registry, set_matrix)
 
@@ -173,12 +177,13 @@ def _finish_module_db(mod: PrunableModule, levels: np.ndarray,
 
 
 def build_module_db(cfg, params, mod: PrunableModule, h_raw,
-                    damp: float = 1e-4) -> ModuleDB:
+                    damp: float = 1e-4, compact: bool = False) -> ModuleDB:
     W = get_matrix(cfg, params, mod).float()
     h_raw = h_raw.to(W.device, torch.float32)
     levels = level_grid(mod)
+    prune = prune_structured_compact if compact else prune_structured
     snaps16, errs, orders = _prune_healed(
-        prune_structured, W, h_raw, group_size=mod.group_size,
+        prune, W, h_raw, group_size=mod.group_size,
         n_remove=max(levels), levels=tuple(levels), damp=damp,
         names=[mod.name])
     base = float(module_drop_error(W, h_raw))
@@ -201,13 +206,17 @@ def group_modules(cfg, params, mods: List[PrunableModule]
 
 def build_database(cfg, params, hessians: Dict[str, torch.Tensor], *,
                    damp: float = 1e-4, verbose: bool = False,
-                   batched: bool = True, max_batch: int = 16,
+                   batched: bool = True, compact: bool = False,
+                   max_batch: int = 16,
                    device: DeviceLike = None) -> Dict[str, ModuleDB]:
     """The database of every registry module, built on ``device``
     (``params`` must live there; Hessians are moved to it).
 
     ``max_batch`` bounds how many modules of one shape group run as one
     stack, capping device memory at max_batch x (Hinv + snapshot stack).
+    ``compact=True`` routes Algorithm 1 through the live-set-compacted
+    cores: the same orders, the snapshots scattered back to the original
+    rows before ``_finish_module_db``.
     """
     dev = resolve_device(device)
     mods = registry(cfg)
@@ -216,8 +225,11 @@ def build_database(cfg, params, hessians: Dict[str, torch.Tensor], *,
         if not batched:
             for mod in mods:
                 db[mod.name] = build_module_db(cfg, params, mod,
-                                               hessians[mod.name], damp)
+                                               hessians[mod.name], damp,
+                                               compact=compact)
         else:
+            prune_batched = (prune_structured_batched_compact if compact
+                             else prune_structured_batched)
             for key, gmods in group_modules(cfg, params, mods):
                 gs, _, _, levels = key
                 for lo in range(0, len(gmods), max_batch):
@@ -227,7 +239,7 @@ def build_database(cfg, params, hessians: Dict[str, torch.Tensor], *,
                     Hraw = torch.stack([hessians[m.name].float()
                                         for m in chunk]).to(dev)
                     snaps16, errs, orders = _prune_healed(
-                        prune_structured_batched, Ws, Hraw, group_size=gs,
+                        prune_batched, Ws, Hraw, group_size=gs,
                         n_remove=max(levels), levels=levels, damp=damp,
                         names=[m.name for m in chunk])
                     # sync: one transfer per chunk

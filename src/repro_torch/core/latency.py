@@ -13,13 +13,17 @@ module at every sparsity level. Two backends:
   measurement that fails raises; it never falls back to the cost model.
 
 ``runtime_of`` maps a per-module level assignment to end-to-end runtime,
-which is what gives ZipLM its speedup guarantee.
+which is what gives ZipLM its speedup guarantee. ``build_table`` reads a
+measured table from, and stores it in, the persistent latency cache
+(``core/latency_cache.py``) when a ``cache_dir`` or
+``$ZIPLM_LATENCY_CACHE`` names one.
 """
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -29,6 +33,14 @@ from ..models.layers import compute_dtype
 from ..runtime import costmodel as cm
 from ..runtime.device import DeviceLike, resolve_device
 from .structures import UNITS, PrunableModule, level_grid, registry
+
+
+# what the measure backend has timed in this process: ``_time_fn`` calls
+# and the timed calls they made (a cache hit adds none), and the cache
+# files that a lookup found corrupt or foreign (``core/latency_cache.py``)
+TIMING_STATS = {"calls": 0, "reps": 0,
+                "cache_corrupt": 0, "cache_foreign": 0,
+                "cache_flagged": []}
 
 
 @dataclass
@@ -139,6 +151,8 @@ def _time_fn(fn, *args, reps: int, warmup: int, dev: torch.device) -> float:
     smallest timing modules). A module that cannot be captured raises.
     On the CPU: ``perf_counter`` around ``reps`` calls after ``warmup``
     untimed ones."""
+    TIMING_STATS["calls"] += 1
+    TIMING_STATS["reps"] += reps
     if dev.type == "cuda":
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -206,12 +220,31 @@ def build_measured_table(cfg, env: cm.InferenceEnv, dev: torch.device, *,
 
 
 def build_table(cfg, env: cm.InferenceEnv, backend: str = "costmodel", *,
-                device: DeviceLike = None, **kw) -> LatencyTable:
+                device: DeviceLike = None, cache_dir: Optional[str] = None,
+                refresh: bool = False, **kw) -> LatencyTable:
     """The latency table of ``cfg`` in ``env``; ``measure`` times the
-    modules on ``device``."""
+    modules on ``device``.
+
+    A measured table goes through the persistent cache
+    (``core/latency_cache.py``) when ``cache_dir`` is given or
+    ``$ZIPLM_LATENCY_CACHE`` is set (an opt-in, so a bare run stays
+    hermetic): a hit is returned without timing anything, a miss is
+    measured and stored. ``refresh=True`` measures again and overwrites
+    the entry. The cost-model table is cheap and never cached. A failed
+    measurement raises."""
     dev = resolve_device(device)
     if backend == "costmodel":
         return build_costmodel_table(cfg, env)
     if backend == "measure":
-        return build_measured_table(cfg, env, dev, **kw)
+        lc = None
+        if cache_dir is not None or os.environ.get("ZIPLM_LATENCY_CACHE"):
+            from .latency_cache import LatencyCache
+            lc = LatencyCache(cache_dir)
+            tab = None if refresh else lc.get(cfg, env, dev, **kw)
+            if tab is not None:
+                return tab
+        tab = build_measured_table(cfg, env, dev, **kw)
+        if lc is not None:
+            lc.put(cfg, env, tab, dev, **kw)
+        return tab
     raise ValueError(f"unknown latency backend {backend!r}")

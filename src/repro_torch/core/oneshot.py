@@ -94,6 +94,7 @@ def oneshot_prune(cfg, params, calib_batches: List[dict],
                   latency_backend: str = "costmodel",
                   latency_kw: Optional[dict] = None,
                   search_steps: int = 200, search_pop: int = 16,
+                  search_batched: bool = True,
                   eval_with_loss: bool = True,
                   eval_batches: Optional[List[dict]] = None,
                   damp: float = 1e-4, seed: int = 0, verbose: bool = False,
@@ -101,9 +102,13 @@ def oneshot_prune(cfg, params, calib_batches: List[dict],
                   device: DeviceLike = None) -> OneShotResult:
     """One-shot family pruning on ``device`` (params are moved there).
 
-    ``latency_kw`` is forwarded to ``build_table``; ``search_pop`` sets
-    the SPDY population per round; without ``eval_with_loss`` the search
-    scores candidates by the analytic prior sum. ``hessians``, the
+    ``latency_kw`` is forwarded to ``build_table`` (with ``{"cache_dir":
+    ...}`` a measured table is read from, or stored in, the latency
+    cache); ``search_pop`` sets the SPDY population per round;
+    ``search_batched=False`` runs the serial equivalence-reference search
+    (the scalar DP, candidates scored one by one); without
+    ``eval_with_loss`` the search scores candidates by the analytic prior
+    sum. ``hessians``, the
     ``collect_hessians`` result of these params and batches (say, from a
     run of the other MoE prune mode, whose modules and captures are the
     same), replaces the calibration stage.
@@ -141,12 +146,16 @@ def oneshot_prune(cfg, params, calib_batches: List[dict],
         evals = eval_batches or calib_batches[:1]
         loss_eval = calib_loss_fn(cfg, evals, device=dev)
         dense_loss = loss_eval(params)
-        eval_batched = (make_batched_eval(cfg, params, cache, evals,
-                                          device=dev)
-                        if eval_with_loss else None)
+        eval_fn = eval_batched = None
+        if eval_with_loss:
+            def eval_fn(assignment):
+                return loss_eval(cache.apply(params, assignment))
+            eval_batched = make_batched_eval(cfg, params, cache, evals,
+                                             device=dev)
         results = search_family(db, table, targets, steps=search_steps,
-                                pop=search_pop, eval_batched=eval_batched,
-                                seed=seed, verbose=verbose)
+                                pop=search_pop, eval_fn=eval_fn,
+                                eval_batched=eval_batched, seed=seed,
+                                batched=search_batched, verbose=verbose)
 
     variants: Dict[float, PrunedVariant] = {}
     with stage("stitch"):

@@ -106,11 +106,9 @@ rolls the target back to ``search``. Each target's record carries
 ``stage_times`` (seconds per stage; ``export`` is the tail).
 
 Not ported yet: the mesh arguments (``mesh``, ``data_axes``, ``mc``,
-``specs``; ROADMAP Queue 1 item 6), the serial search
-(``search_batched=False``) and the persistent latency cache
-(``latency_kw={"cache_dir": ...}``; both item 4), and the
-``db.artifact_write`` fault site with its corrupt-after-write mode (item
-5). Each of the first three raises ``NotImplementedError``.
+``specs``; ROADMAP Queue 1 item 6), which raise ``NotImplementedError``,
+and the ``db.artifact_write`` fault site with its corrupt-after-write
+mode (item 5).
 
 One deliberate difference from the JAX package: a variant's ``pruned``
 model is shrunk from its finetuned params (``shrink_from_stitched``). The
@@ -503,11 +501,19 @@ def gradual_prune(cfg, params, env, targets: Sequence[float],
     thread beside the next target's stages; the results are the same
     bits either way, so the flag is not part of the resume header.
 
+    ``search_batched=False`` runs each target's search on the serial
+    equivalence-reference path (the scalar DP, candidates scored one by
+    one).
+
     ``latency_kw`` goes to ``build_table`` (the measure backend's
-    ``reps`` and ``warmup``). A measured table is built anew by every
-    call, and it is not repeatable between builds, so a run resumed on
-    the measure backend searches its remaining targets against another
-    table: the cost-model backend keeps a resume bit-equal.
+    ``reps`` and ``warmup``, and ``cache_dir``). A measured table is not
+    repeatable between builds: without a cache every call measures anew,
+    so a run resumed on the measure backend would search its remaining
+    targets against another table. With ``{"cache_dir": ...}`` (or
+    ``$ZIPLM_LATENCY_CACHE``) the first call stores the table and a
+    resumed run reads the same one, so a measured-table family resumes
+    bit for bit, as a cost-model one does. The cache's location is not
+    part of the resume header; the other latency arguments are.
     """
     refuse_cross_attention(cfg, "gradual_prune (each target exports a "
                            "shrunk model)")
@@ -517,15 +523,6 @@ def gradual_prune(cfg, params, env, targets: Sequence[float],
             "gradual_prune(mesh=, data_axes=, mc=, specs=): the sharded "
             "calibration and mesh trainer are not ported yet (ROADMAP "
             "Queue 1 item 6)")
-    if not search_batched:
-        raise NotImplementedError(
-            "gradual_prune(search_batched=False): the serial dp_select "
-            "search is not ported yet (ROADMAP Queue 1 item 4)")
-    if latency_kw and "cache_dir" in latency_kw:
-        raise NotImplementedError(
-            "gradual_prune(latency_kw={'cache_dir': ...}): the persistent "
-            "latency cache (core/latency_cache.py) is not ported yet "
-            "(ROADMAP Queue 1 item 4)")
     tcfg = tcfg or gradual_train_config(finetune_steps)
     if stop_after is not None:
         if stop_after[1] not in ("hessians", "db", "search", "finetune"):
@@ -541,7 +538,8 @@ def gradual_prune(cfg, params, env, targets: Sequence[float],
     run_dir = family_run_dir(cfg, targets, seed, base=ckpt_dir)
     if not resume:
         shutil.rmtree(run_dir, ignore_errors=True)
-    lat_kw = {k: repr(v) for k, v in sorted((latency_kw or {}).items())}
+    lat_kw = {k: repr(v) for k, v in sorted((latency_kw or {}).items())
+              if k != "cache_dir"}  # the cache's location changes no result
     header = {"cfg": cfg.name, "targets": targets, "seed": int(seed),
               "finetune_steps": int(finetune_steps),
               "search_steps": int(search_steps),
@@ -564,7 +562,8 @@ def gradual_prune(cfg, params, env, targets: Sequence[float],
             return _family_engine(
                 cfg, params, env, targets, data, calib_batches, tcfg=tcfg,
                 finetune_steps=finetune_steps, search_steps=search_steps,
-                search_pop=search_pop, latency_backend=latency_backend,
+                search_pop=search_pop, search_batched=search_batched,
+                latency_backend=latency_backend,
                 latency_kw=latency_kw, ckpt_every=ckpt_every, seed=seed,
                 stop_after=stop_after, overlap=overlap,
                 keep_checkpoints=keep_checkpoints, verbose=verbose,
@@ -577,7 +576,7 @@ def gradual_prune(cfg, params, env, targets: Sequence[float],
 
 
 def _family_engine(cfg, params, env, targets, data, calib_batches, *, tcfg,
-                   finetune_steps, search_steps, search_pop,
+                   finetune_steps, search_steps, search_pop, search_batched,
                    latency_backend, latency_kw, ckpt_every, seed,
                    stop_after, overlap, keep_checkpoints, verbose, run_dir,
                    frs, dev) -> List[GradualVariant]:
@@ -750,7 +749,10 @@ def _family_engine(cfg, params, env, targets, data, calib_batches, *, tcfg,
             else:
                 t0 = time.perf_counter()
                 res = search(db, table, target, steps=search_steps,
-                             pop=search_pop, seed=seeds[i],
+                             pop=search_pop, batched=search_batched,
+                             seed=seeds[i],
+                             eval_fn=lambda a: loss_eval(
+                                 cache.apply(current, a)),
                              eval_batched=make_batched_eval(
                                  cfg, current, cache, calib_batches[:1],
                                  device=dev))

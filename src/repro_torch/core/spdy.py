@@ -17,7 +17,10 @@ against a score memo, and the surviving unique assignments of the whole
 family are scored in one ``eval_batched`` call (one host sync per round).
 Any scored candidate whose true table runtime meets another target's
 budget is harvested for that target. Per-target RNG streams are spawned
-from ``seed``. Host-side numpy throughout; the same seed gives the same
+from ``seed``. ``batched=False`` runs the same rounds, mutations and
+acceptance with the scalar `dp_select` and per-candidate ``eval_fn``:
+the equivalence reference (for the analytic score, bit-identical
+results). Host-side numpy throughout; the same seed gives the same
 candidates as the JAX package's engine.
 """
 from __future__ import annotations
@@ -54,6 +57,50 @@ def quantize_times(times: List[np.ndarray], budget: float,
     scale = budget / nbins if budget > 0 else 1.0
     return [np.minimum(np.ceil(t / scale).astype(np.int64), nbins + 1)
             for t in times]
+
+
+def dp_select(costs: List[np.ndarray], times: List[np.ndarray],
+              budget: float, nbins: int = 1024,
+              tq: Optional[List[np.ndarray]] = None):
+    """Pick one level per module minimizing sum(cost) s.t. sum(time) <=
+    budget. Returns ``(choices, total_cost)``, or ``(None, inf)`` when
+    infeasible; the scalar reference of `dp_select_batched`. Pass
+    pre-quantized ``tq`` to skip quantizing again."""
+    m = len(costs)
+    if tq is None:
+        tq = quantize_times(times, budget, nbins)
+
+    INF = np.inf
+    dp = np.full(nbins + 1, INF)
+    dp[0] = 0.0
+    choice = np.zeros((m, nbins + 1), np.int16)
+    for i in range(m):
+        best = np.full(nbins + 1, INF)
+        arg = np.zeros(nbins + 1, np.int16)
+        for l in range(len(costs[i])):
+            t = int(tq[i][l])
+            if t > nbins:
+                continue
+            cand = np.full(nbins + 1, INF)
+            if t == 0:
+                cand = dp + costs[i][l]
+            else:
+                cand[t:] = dp[:-t] + costs[i][l]
+            upd = cand < best
+            best[upd] = cand[upd]
+            arg[upd] = l
+        dp = best
+        choice[i] = arg
+    b = int(np.argmin(dp))
+    if not np.isfinite(dp[b]):
+        return None, np.inf
+    total = float(dp[b])
+    choices = np.zeros(m, np.int64)
+    for i in range(m - 1, -1, -1):
+        l = int(choice[i, b])
+        choices[i] = l
+        b -= int(tq[i][l])
+    return choices, total
 
 
 def dp_select_batched(costs: List[np.ndarray], times=None, budget=None,
@@ -142,16 +189,20 @@ def search_family(db: Dict[str, ModuleDB], table: LatencyTable,
                   targets: Sequence[float], *, steps: int = 1000,
                   pop: int = 16, mutate_frac: float = 0.1,
                   nbins: int = 1024,
+                  eval_fn: Optional[Callable[[Dict[str, int]], float]] = None,
                   eval_batched: Optional[
                       Callable[[List[Dict[str, int]]], np.ndarray]] = None,
-                  seed: SeedLike = 0, share_pool: bool = True,
+                  seed: SeedLike = 0, batched: bool = True,
+                  share_pool: bool = True,
                   verbose: bool = False) -> Dict[float, SearchResult]:
     """One amortized SPDY search over a whole speedup-target family.
 
     ``steps`` counts candidates per target. ``eval_batched`` scores a list
-    of assignments in one call (see ``oneshot.make_batched_eval``);
-    without it candidates get the paper's analytic sum-of-squared-priors
-    score.
+    of assignments in one call (see ``oneshot.make_batched_eval``); the
+    batched path without it, and ``batched=False`` always, score the
+    round's new candidates one by one with ``eval_fn`` (or
+    ``eval_batched`` of one). With neither, candidates get the paper's
+    analytic sum-of-squared-priors score.
     """
     targets = list(targets)
     K = len(targets)
@@ -190,6 +241,7 @@ def search_family(db: Dict[str, ModuleDB], table: LatencyTable,
     memo: Dict[tuple, float] = {}
     producer: Dict[tuple, np.ndarray] = {}  # choices-tuple -> coeffs row
     n_evals = 0
+    analytic = eval_fn is None and eval_batched is None
 
     rnd = 0
     while any(d < steps for d in done):
@@ -201,8 +253,17 @@ def search_family(db: Dict[str, ModuleDB], table: LatencyTable,
             C = _mutate_population(rngs[k], coeffs[k], P_k, mutate_frac,
                                    include_base=(rnd == 0))
             done[k] += P_k
-            costs = [C[:, [i]] * priors[i][None, :] for i in range(m)]
-            ch, _ = dp_select_batched(costs, tq=tqs[k], nbins=nbins)
+            if batched:
+                costs = [C[:, [i]] * priors[i][None, :] for i in range(m)]
+                ch, _ = dp_select_batched(costs, tq=tqs[k], nbins=nbins)
+            else:
+                ch = np.full((P_k, m), -1, np.int64)
+                for p in range(P_k):
+                    cp = [C[p, i] * priors[i] for i in range(m)]
+                    c_p, _ = dp_select(cp, times, budgets[k], nbins,
+                                       tq=tqs[k])
+                    if c_p is not None:
+                        ch[p] = c_p
             entries.append((k, C, ch))
 
         # dedup this round's feasible candidates against the shared memo
@@ -217,13 +278,17 @@ def search_family(db: Dict[str, ModuleDB], table: LatencyTable,
                     new_keys.append(key)
 
         if new_keys:
-            if eval_batched is None:
+            if analytic:
                 vals = [float(sum(p[c] ** 2 for p, c in zip(priors, key)))
                         for key in new_keys]
-            else:
+            elif batched and eval_batched is not None:
                 vals = np.asarray(eval_batched([assemble(key)
                                                 for key in new_keys]),
                                   np.float64)
+            else:
+                fn = eval_fn if eval_fn is not None else \
+                    (lambda a: float(eval_batched([a])[0]))
+                vals = [float(fn(assemble(key))) for key in new_keys]
             for key, v in zip(new_keys, vals):
                 memo[key] = float(v)
             n_evals += len(new_keys)
@@ -299,25 +364,16 @@ def search(db: Dict[str, ModuleDB], table: LatencyTable,
            devices: Optional[List] = None,
            verbose: bool = False) -> SearchResult:
     """Single-target random-mutation search (paper §3.2): a one-target
-    `search_family`, with the JAX package's signature.
-
-    ``eval_batched`` scores each round's candidates; given both, as the
-    reference's batched path does, ``eval_fn`` goes unused, and given
-    ``eval_fn`` alone it scores the round's candidates one by one. The
-    serial equivalence path (``batched=False``, the scalar DP) and
-    placing populations on several ``devices`` are not ported."""
-    if not batched:
-        raise NotImplementedError(
-            "search(batched=False): the serial dp_select path is not "
-            "ported yet (ROADMAP Queue 1 item 4)")
+    `search_family`, with the JAX package's signature. ``batched=False``
+    is the serial equivalence reference (the same rounds and mutations,
+    the scalar DP, per-candidate ``eval_fn``). Placing populations on
+    several ``devices`` is not ported."""
     if devices is not None and len(devices) > 1:
         raise NotImplementedError(
             "search(devices=[...]) over more than one device: placed SPDY "
             "populations are not ported yet (ROADMAP Queue 1 item 6)")
-    if eval_batched is None and eval_fn is not None:
-        def eval_batched(assignments):
-            return np.asarray([eval_fn(a) for a in assignments], np.float64)
     return search_family(
         db, table, [target_speedup], steps=steps, pop=pop,
-        mutate_frac=mutate_frac, nbins=nbins, eval_batched=eval_batched,
-        seed=seed, verbose=verbose)[target_speedup]
+        mutate_frac=mutate_frac, nbins=nbins, eval_fn=eval_fn,
+        eval_batched=eval_batched, seed=seed, batched=batched,
+        verbose=verbose)[target_speedup]

@@ -255,7 +255,8 @@ def test_prune_structured_is_the_batched_core_for_one_module(ref,
     many = prune_structured_batched(W[None], Hinv[None],
                                     group_size=mod.group_size,
                                     n_remove=max(lv), levels=lv)
-    for a, b in zip(one, many):
+    assert one.perm is None and many.perm is None  # compacted runs only
+    for a, b in zip(one[:3], many[:3]):
         assert torch.equal(a, b[0])
 
 

@@ -1024,3 +1024,46 @@ def test_measured_table_prices_modules_by_their_device_time(cuda_device,
                 device = _device_ms(fn, args)
                 assert abs(secs * 1e3 - device) <= 0.2 * device, (
                     kind, int(removed), secs * 1e3, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [True, False])
+def test_compacted_database_on_the_card_keeps_the_plain_orders(cuda_device,
+                                                              batched):
+    """``build_database(compact=True)`` on the card (the downdate kernel
+    launched on the compacted live prefix, ``d_live`` below the working
+    rows) removes the structures in the order of the card's plain build,
+    with errors within 1e-5 relative and snapshots within float16 of it
+    (the same per-step arithmetic). Against the CPU's compacted build it
+    keeps the CPU's orders up to the near-ties that the card's rounding
+    may swap, the bound chip_smoke's phase 3 holds the plain database to:
+    the removed sets differ by at most max(1, n // 50) structures at a
+    level. Both kinds compact (FFN 384 rows, attention 6 heads of 16)."""
+    cfg = TRAIN_CFG
+    params = model_init(cfg, torch.Generator().manual_seed(3), device="cpu")
+    hess = collect_hessians(cfg, params, calibration_batches(cfg, 16, 64,
+                                                             batch=8),
+                            device="cpu")
+    cpu = build_database(cfg, params, hess, batched=batched, compact=True,
+                         device="cpu")
+    card_params = tree_to(params, cuda_device)
+    before = obs_downdate.launches
+    card = build_database(cfg, card_params, hess, batched=batched,
+                          compact=True, device=cuda_device)
+    assert obs_downdate.launches > before
+    plain = build_database(cfg, card_params, hess, batched=batched,
+                           device=cuda_device)
+    for name, want in cpu.items():
+        got = card[name]
+        np.testing.assert_array_equal(got.order, plain[name].order,
+                                      err_msg=name)
+        np.testing.assert_allclose(got.errors, plain[name].errors,
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+        np.testing.assert_allclose(got.snapshots.astype(np.float32),
+                                   plain[name].snapshots.astype(np.float32),
+                                   atol=2e-3, rtol=2e-3, err_msg=name)
+        n = want.mod.n_structures
+        for lvl in want.levels:
+            gone = set(got.order[:lvl].tolist())
+            assert len(gone ^ set(want.order[:lvl].tolist())) // 2 <= \
+                max(1, n // 50), (name, int(lvl))

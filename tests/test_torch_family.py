@@ -4,7 +4,8 @@ in the port, then the port's family held against the JAX package's on
 the same weights (moved over by the weight bridge), calibration batches,
 token stream and cost-model table, and its database stage fed the
 reference run's own target-1 params; last the manifest's helpers,
-artifact integrity and the arguments that are not ported.
+artifact integrity and the arguments that are not ported (and those
+ported since: the serial search and the latency cache).
 
 Tolerances: assignments and achieved speedups equal (the two tables
 are equal number for number, tests/test_torch_core.py); per-target
@@ -558,28 +559,37 @@ def test_tree_digest_is_stable_and_sees_one_element():
 
 
 def test_arguments_not_ported_raise(run, tmp_path):
-    for kw, item in (({"mesh": object()}, "item 6"),
-                     ({"specs": {}}, "item 6"),
-                     ({"search_batched": False}, "item 4"),
-                     ({"latency_kw": {"cache_dir": str(tmp_path)}},
-                      "item 4")):
-        with pytest.raises(NotImplementedError, match=item):
+    """The mesh arguments (ROADMAP Queue 1 item 6) raise before the run
+    writes anything. The serial search and the latency cache (item 4)
+    are ported: each runs through its first search (on the cost-model
+    table, which is never cached)."""
+    for kw in ({"mesh": object()}, {"specs": {}}):
+        with pytest.raises(NotImplementedError, match="item 6"):
             run(tmp_path, **kw)
     assert not any(tmp_path.iterdir())
+    cache = tmp_path / "cache"
+    for i, kw in enumerate(({"search_batched": False},
+                            {"latency_kw": {"cache_dir": str(cache)}})):
+        with pytest.raises(FamilyPreempted):
+            run(tmp_path / str(i), stop_after=(0, "search"), **kw)
+    assert not cache.exists()
 
 
 def test_search_arguments_not_ported_raise(ref_family, cfg):
-    """``spdy.search`` is a one-target ``search_family``; its serial and
-    multi-device paths raise."""
+    """``spdy.search`` is a one-target ``search_family``; its
+    multi-device path raises, and its serial path (ported with item 4)
+    gives the batched path's result."""
     db = _load_db(cfg, os.path.join(ref_family[0], "t1.5", "db.npz"))
     table = build_table(cfg, ENV, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        spdy.search(db, table, 1.5, steps=4, pop=4, batched=False)
     with pytest.raises(NotImplementedError, match="item 6"):
         spdy.search(db, table, 1.5, steps=4, pop=4, devices=["a", "b"])
     one = spdy.search(db, table, 1.5, steps=8, pop=4, seed=5)
     fam = spdy.search_family(db, table, [1.5], steps=8, pop=4, seed=5)[1.5]
     assert one.assignment == fam.assignment and one.score == fam.score
+    serial = spdy.search(db, table, 1.5, steps=8, pop=4, seed=5,
+                         batched=False)
+    assert serial.assignment == one.assignment
+    assert serial.score == one.score and serial.history == one.history
     # eval_fn alone scores the candidates one by one, as the reference's
     # batched path does without eval_batched
     by_fn = spdy.search(db, table, 1.5, steps=8, pop=4, seed=5,
