@@ -257,6 +257,31 @@ Phases (any failure exits non-zero and prints no result):
    the path, and the kernel checked and timed at the first and the last
    compacted FFN widths (JSON ``compact_launches``, and two
    ``other_shapes`` rows of obs_downdate).
+17. robustness (run right after phase 5, on phase 4's GPT-2 small, its
+   calibration, database and measured table, and phase 5's top member),
+   each part under its own fault plan and report scope: (a)
+   ``calib.batch:nan@1``, the Hessians bit-equal to a clean
+   ``collect_hessians`` without batch 1, one batch detected and
+   recovered; (b) ``obs.cholesky:nan@0``, the database healed at rung 1,
+   its attention chunk equal to a clean build at damp x 10 and its FFN
+   chunk to phase 4's database (orders, errors, snapshots bit for bit);
+   (c) ``kernel.pallas:raise@0``, ``oneshot_prune`` raises
+   ``FaultInjected`` out of its first kernel call, no breaker opens and
+   no launch is counted; (d) ``spdy.batched_eval:raise@0``, the search
+   demoted once to serial scoring gives the clean batched search's
+   assignments and scores; (e) ``latency.measure:raise@0`` with a
+   cached entry, the call returns the cost-model table priced with
+   ``H100_SXM``, the entry quarantined, one demotion; (f)
+   ``serve.step:nan@2,serve.step:raise@5`` on the top member in fp32,
+   the clean run's tokens, 2 detected and 2 recovered; (g) a gradual
+   family on 2 full-width layers, clean and under
+   ``db.artifact_write:corrupt@0,ckpt.async_write:oserror@0x2`` (killed
+   after its Hessians, resumed: the corrupted Hessians quarantined and
+   rebuilt, the first checkpoint write healed on its third attempt), bit
+   for bit the clean member. Seconds per part and JSON
+   ``chaos_launches``. After the last phase the process's default
+   robustness report holds no injection, open breaker or demotion, and
+   no report counted an injection or a demotion outside phase 17.
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 product on the
 card is a full fp32 product and the fp32 tolerances below hold. The train
@@ -4135,6 +4160,345 @@ def run_compact_path(torch, kernels, cfg, params, calib):
     return launches, out, rows
 
 
+# phase 17: robustness on the card. Its parts run on phase 4's model,
+# calibration, database and measured table and on phase 5's top member;
+# (g) runs a gradual family on the first CHAOS_FAMILY_LAYERS layers with
+# one target, 8 finetune steps of 4 x 256 and a checkpoint at step 4
+# (keep_checkpoints=False, as phase 9), priced by the cost model, so the
+# phase stays inside 60 s
+CHAOS_REQUESTS = 4
+CHAOS_FAMILY_LAYERS = 2
+CHAOS_FAMILY_TARGETS = [1.3]
+CHAOS_FAMILY_KW = {"finetune_steps": 8, "ckpt_every": 4, "search_steps": 8,
+                   "search_pop": 8}
+CHAOS_FAMILY_BATCH, CHAOS_FAMILY_SEQ = 4, 256
+CHAOS_KERNELS = ONESHOT_KERNELS + SERVING_KERNELS
+
+# injections and demotions counted while phase 17 is not running, in any
+# report (the family engine's own included); check_reports fails on them
+IN_CHAOS = [False]
+OUTSIDE_CHAOS = []
+
+
+def watch_reports() -> None:
+    """Record every injection and demotion that a robustness report
+    counts outside phase 17."""
+    from repro_torch.robustness.report import RobustnessReport
+    real = RobustnessReport.count
+
+    def count(self, bucket, site, n=1):
+        if bucket in ("injected", "demotions") and not IN_CHAOS[0]:
+            OUTSIDE_CHAOS.append((bucket, site, n))
+        return real(self, bucket, site, n)
+
+    RobustnessReport.count = count
+
+
+def check_reports() -> None:
+    """After the last phase: the process's default report holds no
+    injection, open breaker or demotion, and no report counted an
+    injection or a demotion outside phase 17, so no cost-model table and
+    no serial search stood in for a failure anywhere else."""
+    from repro_torch.robustness import current_report
+    rep = current_report().as_dict()
+    print(f"robustness: default report {rep['counts']}, breakers open "
+          f"{rep['breakers_open']}; injections and demotions outside "
+          f"phase 17: {OUTSIDE_CHAOS}")
+    check(not rep["counts"]["injected"] and not rep["breakers_open"]
+          and not rep["counts"]["demotions"],
+          f"the default robustness report is not clean: {rep}")
+    check(not OUTSIDE_CHAOS, f"injections or demotions outside phase 17: "
+          f"{OUTSIDE_CHAOS}")
+
+
+def _same_db(a, b, names) -> bool:
+    import numpy as np
+    return all(np.array_equal(getattr(a[n], f), getattr(b[n], f))
+               for n in names for f in ("order", "errors", "snapshots"))
+
+
+def run_chaos_path(torch, kernels, cfg, params, calib, db, table, fam):
+    """Phase 17: each robustness site on the card under its own plan and
+    report scope (see the module docstring); returns the phase's
+    launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.checkpoint.manager import load_json
+    from repro_torch.configs import GPT2_SMALL
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.database import SnapshotCache, build_database
+    from repro_torch.core.hessian import collect_hessians
+    from repro_torch.core.latency import (LatencyTable,
+                                          build_costmodel_table, build_table)
+    from repro_torch.core.latency_cache import LatencyCache
+    from repro_torch.core.oneshot import (calib_loss_fn, make_batched_eval,
+                                          oneshot_prune)
+    from repro_torch.core.pipeline import (FamilyPreempted, family_run_dir,
+                                           gradual_prune)
+    from repro_torch.core.shrink import shrink_from_stitched
+    from repro_torch.core.spdy import search_family
+    from repro_torch.data import synthetic_stream
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.robustness import (FaultInjected, FaultPlan,
+                                        RobustnessReport, damp_schedule,
+                                        install, report_scope)
+    from repro_torch.runtime.costmodel import H100_SXM, InferenceEnv
+    from repro_torch.serve import (PrunedServeModel, ServeEngine,
+                                   synthetic_requests)
+
+    seconds = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
+    IN_CHAOS[0] = True
+    kernels.reset_launch_counts()
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    def faulted(spec):
+        return install(FaultPlan.parse(spec)), report_scope()
+
+    def counts(rep):
+        return {b: d for b, d in rep.as_dict()["counts"].items() if d}
+
+    try:
+        # (a) a poisoned calibration batch is skipped
+        def part_a():
+            plan, scope = faulted("calib.batch:nan@1")
+            with plan, scope as rep:
+                got = collect_hessians(cfg, params, calib, device="cuda")
+            clean = collect_hessians(cfg, params,
+                                     [b for i, b in enumerate(calib)
+                                      if i != 1], device="cuda")
+            same = all(torch.equal(got[k], clean[k]) for k in clean)
+            print(f"chaos (a) calib.batch:nan@1: Hessians bit-equal to a "
+                  f"clean run without batch 1: {same}; {counts(rep)}")
+            check(same, "chaos (a): the Hessians differ from the clean run "
+                  "without the poisoned batch")
+            check(counts(rep) == {
+                "injected": {"calib.batch": 1}, "detected": {"calib.batch": 1},
+                "recovered": {"calib.batch": 1}},
+                f"chaos (a): counts {counts(rep)}")
+            return collect_hessians(cfg, params, calib, device="cuda")
+
+        hess = timed("a", part_a)
+
+        # (b) a poisoned inverse Hessian heals on the damping ladder
+        def part_b():
+            plan, scope = faulted("obs.cholesky:nan@0")
+            with plan, scope as rep:
+                got = build_database(cfg, params, hess, device="cuda")
+            rung1 = build_database(cfg, params, hess,
+                                   damp=damp_schedule(1e-4)[1],
+                                   device="cuda")
+            attn = [n for n in db if db[n].mod.kind == "attn"]
+            ffn = [n for n in db if db[n].mod.kind != "attn"]
+            healed, kept = _same_db(got, rung1, attn), _same_db(got, db, ffn)
+            print(f"chaos (b) obs.cholesky:nan@0: the attention chunk equals "
+                  f"a clean build at damp {damp_schedule(1e-4)[1]:g}: "
+                  f"{healed}, the FFN chunk phase 4's database: {kept}; "
+                  f"{counts(rep)}")
+            check(healed and kept, "chaos (b): the healed database differs")
+            check(counts(rep) == {
+                "injected": {"obs.cholesky": 1},
+                "detected": {"obs.cholesky": 1},
+                "retries": {"obs.cholesky": 1},
+                "recovered": {"obs.cholesky": 1}},
+                f"chaos (b): counts {counts(rep)}")
+
+        timed("b", part_b)
+        del hess
+
+        # (c) an injected kernel failure raises; nothing falls back
+        def part_c():
+            before = {k.__name__: k.launches for k in kernels.KERNELS}
+            plan, scope = faulted("kernel.pallas:raise@0")
+            raised = None
+            with plan, scope as rep:
+                try:
+                    oneshot_prune(cfg, params, calib, table.env, MAIN_TARGETS,
+                                  latency_backend="measure",
+                                  latency_kw=LATENCY_KW, search_steps=48,
+                                  search_pop=16, seed=0, device="cuda")
+                except FaultInjected as e:
+                    raised = e
+            after = {k.__name__: k.launches for k in kernels.KERNELS}
+            print(f"chaos (c) kernel.pallas:raise@0: oneshot_prune raised "
+                  f"{raised!r}; launches unchanged: {after == before}; "
+                  f"{counts(rep)}, breakers {rep.as_dict()['breakers_open']}")
+            check(raised is not None, "chaos (c): oneshot_prune did not "
+                  "raise the injected kernel failure")
+            check(after == before and not rep.as_dict()["breakers_open"]
+                  and counts(rep) == {"injected": {"kernel.pallas": 1}},
+                  "chaos (c): a kernel failure was counted, launched or "
+                  "demoted")
+
+        timed("c", part_c)
+
+        # (d) a failed batched scorer demotes the search to serial scoring
+        cache = SnapshotCache(cfg, db, device="cuda")
+
+        def part_d():
+            loss = calib_loss_fn(cfg, calib[:1], device="cuda")
+            kw = dict(steps=48, pop=16, seed=0,
+                      eval_fn=lambda a: loss(cache.apply(params, a)),
+                      eval_batched=make_batched_eval(cfg, params, cache,
+                                                     calib[:1],
+                                                     device="cuda"))
+            t0 = time.perf_counter()
+            clean = search_family(db, table, MAIN_TARGETS, **kw)
+            seconds["d_clean"] = time.perf_counter() - t0
+            plan, scope = faulted("spdy.batched_eval:raise@0")
+            with plan, scope as rep:
+                got = search_family(db, table, MAIN_TARGETS, **kw)
+            same = {t: got[t].assignment == clean[t].assignment
+                    and got[t].score == clean[t].score for t in MAIN_TARGETS}
+            print(f"chaos (d) spdy.batched_eval:raise@0: the serial search "
+                  f"equals the clean batched one {same}; {counts(rep)}")
+            check(all(same.values()), "chaos (d): the demoted search differs")
+            check(rep.counts["demotions"] == {"spdy.batched_eval": 1},
+                  f"chaos (d): counts {counts(rep)}")
+
+        timed("d", part_d)
+
+        # (e) a failed measurement demotes the table to the cost model
+        def part_e():
+            env = table.env.replace(hw=H100_SXM)
+            path = LatencyCache(tmp).put(
+                cfg, env, LatencyTable(env=env, grids=table.grids,
+                                       times=table.times, base=table.base),
+                "cuda", **LATENCY_KW)
+            plan, scope = faulted("latency.measure:raise@0")
+            with plan, scope as rep:
+                got = build_table(cfg, env, "measure", device="cuda",
+                                  cache_dir=tmp, refresh=True, **LATENCY_KW)
+            want = build_costmodel_table(cfg, env)
+            same = got.base == want.base and sorted(got.times) == sorted(
+                want.times) and all(np.array_equal(got.times[k],
+                                                   want.times[k])
+                                    for k in want.times)
+            moved = not os.path.exists(path) and os.path.exists(
+                path + ".corrupt")
+            print(f"chaos (e) latency.measure:raise@0: the cost-model table "
+                  f"on {H100_SXM.name}: {same}, the cached entry "
+                  f"quarantined: {moved}; {counts(rep)}")
+            check(same and moved, "chaos (e): no cost-model table or no "
+                  "quarantine")
+            check(rep.counts["demotions"] == {"latency.measure": 1},
+                  f"chaos (e): counts {counts(rep)}")
+
+        timed("e", part_e)
+
+        # (f) failed decode steps are recomputed
+        def part_f():
+            t = max(fam)
+            a = fam[t].assignment
+            pm = shrink_from_stitched(cfg.replace(dtype="float32"),
+                                      cache.apply(params, a), db, a)
+            reqs = synthetic_requests(cfg, CHAOS_REQUESTS, **STREAM)
+
+            def serve():
+                eng = ServeEngine(PrunedServeModel(pm, SERVE["max_len"]),
+                                  SERVE["slots"])
+                return [r.tokens for r in eng.run(reqs).records]
+
+            clean = serve()
+            plan, scope = faulted("serve.step:nan@2,serve.step:raise@5")
+            with plan, scope as rep:
+                got = serve()
+            print(f"chaos (f) serve.step:nan@2,serve.step:raise@5 on the "
+                  f"{t}x member (fp32, {CHAOS_REQUESTS} requests, "
+                  f"{sum(map(len, clean))} tokens): the clean tokens "
+                  f"{got == clean}; {counts(rep)}")
+            check(got == clean, "chaos (f): recomputed steps changed the "
+                  "tokens")
+            check(rep.counts["detected"] == {"serve.step": 2}
+                  and rep.counts["recovered"] == {"serve.step": 2},
+                  f"chaos (f): counts {counts(rep)}")
+
+        timed("f", part_f)
+        del cache
+        torch.cuda.empty_cache()
+
+        # (g) a corrupted artifact and failed checkpoint writes heal
+        def part_g():
+            L = CHAOS_FAMILY_LAYERS
+            cfg2 = GPT2_SMALL.replace(num_layers=L)
+            p2 = {**params, "layers": {
+                grp: {k: t[:L] for k, t in sub.items()}
+                for grp, sub in params["layers"].items()}}
+            env = InferenceEnv(hw=H100_SXM, **FAMILY_ENV)
+            tcfg = TrainConfig(**{**FAMILY_TRAIN, "total_steps":
+                                  CHAOS_FAMILY_KW["finetune_steps"]})
+
+            def run(name, **kw):
+                return gradual_prune(
+                    cfg2, p2, env, CHAOS_FAMILY_TARGETS,
+                    lambda step: synthetic_stream(
+                        cfg2, CHAOS_FAMILY_BATCH, CHAOS_FAMILY_SEQ, seed=0,
+                        start_step=step),
+                    calib, tcfg=tcfg, ckpt_dir=os.path.join(tmp, name),
+                    seed=0, keep_checkpoints=False, device="cuda",
+                    **CHAOS_FAMILY_KW, **kw)
+
+            t0 = time.perf_counter()
+            clean = run("clean")
+            seconds["g_clean"] = time.perf_counter() - t0
+            man = load_json(os.path.join(family_run_dir(
+                cfg2, CHAOS_FAMILY_TARGETS, 0, os.path.join(tmp, "clean")),
+                "family.json"))
+            print("chaos (g) clean run stage seconds " + json.dumps(
+                {t: {k: round(v, 4) for k, v in e["stage_times"].items()}
+                 for t, e in man["targets"].items()}))
+            plan = FaultPlan.parse("db.artifact_write:corrupt@0,"
+                                   "ckpt.async_write:oserror@0x2")
+            rep = RobustnessReport()
+            stopped = False
+            with install(plan):
+                try:
+                    run("faulted", stop_after=(0, "hessians"))
+                except FamilyPreempted:
+                    stopped = True
+                got = run("faulted", report=rep)
+            same = all(
+                a.assignment == b.assignment
+                and a.loss_after_ft == b.loss_after_ft and all(
+                    torch.equal(x, y) for x, y in zip(tree_leaves(a.params),
+                                                      tree_leaves(b.params)))
+                for a, b in zip(clean, got))
+            quarantined = [os.path.basename(q) for q in rep.quarantined]
+            achieved = [round(float(v.achieved), 4) for v in got]
+            print(f"chaos (g) {cfg2.name} family {CHAOS_FAMILY_TARGETS} "
+                  f"({CHAOS_FAMILY_KW}): killed after its Hessians "
+                  f"{stopped}, resumed bit-equal to the clean run: {same}; "
+                  f"achieved {achieved}x; fired {plan.fired}; quarantined "
+                  f"{quarantined}; {counts(rep)}")
+            check(stopped and same, "chaos (g): the healed family differs "
+                  "from the clean run")
+            check(quarantined == ["hessians.npz.corrupt"]
+                  and rep.counts["recovered"] == {"ckpt.async_write": 1}
+                  and rep.counts["retries"] == {"ckpt.async_write": 2},
+                  f"chaos (g): counts {counts(rep)}, quarantined "
+                  f"{quarantined}")
+
+        timed("g", part_g)
+    finally:
+        IN_CHAOS[0] = False
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    print("chaos seconds: " + json.dumps(
+        {k: round(v, 4) for k, v in seconds.items()}))
+    print("chaos_launches: " + json.dumps(launches))
+    for name in CHAOS_KERNELS:
+        check(launches[name] > 0, f"{name} never launched on phase 17")
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -4165,6 +4529,8 @@ def main() -> int:
 
     from repro_torch import kernels
     from repro_torch.kernels import build
+
+    watch_reports()
 
     t0 = time.perf_counter()
     reports = build.build_all()
@@ -4204,7 +4570,6 @@ def main() -> int:
     phase16_bc = time.perf_counter() - t0
     print(f"phase 16 (b, c): serial search and latency cache done "
           f"({phase16_bc:.2f} s)")
-    del cfg, table
 
     t0 = time.perf_counter()
     launches.update({name: n for name, n in serve_family(
@@ -4212,6 +4577,13 @@ def main() -> int:
         if name in SERVING_KERNELS})
     serve_cli(torch, kernels)
     print(f"phase 5: serving done ({time.perf_counter() - t0:.2f} s)")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    chaos_launches = run_chaos_path(torch, kernels, cfg, params, calib, db,
+                                    table, fam)
+    print(f"phase 17: robustness done ({time.perf_counter() - t0:.2f} s)")
+    del cfg, table
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -4298,6 +4670,7 @@ def main() -> int:
         rec["encdec_launches"] = encdec_launches[name]
         rec["vlm_launches"] = vlm_launches[name]
         rec["compact_launches"] = compact_launches[name]
+        rec["chaos_launches"] = chaos_launches[name]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     # flash attention's and the SSD passes' device-only times ride beside
@@ -4308,12 +4681,14 @@ def main() -> int:
     # runs A (phases 9 and 10), the MoE family run (phase 11), the Hymba
     # path (phase 13), the Whisper path (phase 14), the VLM path (phase
     # 15) and the compacted databases (phase 16) beside those on its own
-    # path (phases 4-6; the SSD backward's own path is phase 10)
+    # path (phases 4-6; the SSD backward's own path is phase 10), and the
+    # robustness phase's (17)
     extra = ["note", "device_ms", "library_device_ms", "passes_ms",
              "other_shapes", "moe_launches", "train_launches",
              "family_launches", "ssm_family_launches", "moe_family_launches",
              "hybrid_launches", "encdec_launches", "vlm_launches",
-             "compact_launches"]
+             "compact_launches", "chaos_launches"]
+    check_reports()
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in records.values()]}))
     print(card_line())

@@ -15,7 +15,9 @@
   :class:`CheckpointWriteError` from ``wait()``/``close()`` (a failed
   write must never report success and resume from a stale step);
   transient ``OSError``\\ s are first retried with bounded backoff
-  (``retry_io``).
+  (``robustness.healing.retry_io``) through the ``ckpt.async_write``
+  fault site (pre-serialized blobs through ``db.artifact_write``), whose
+  ``corrupt`` mode flips bytes after the write.
 
 A tree is nested dicts (and named tuples, such as a ``TrainState``) of
 tensors; ``None`` leaves are skipped. It is stored flat, one npz entry per
@@ -32,11 +34,14 @@ import os
 import queue
 import threading
 import time
-from typing import Callable, Dict, Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from ..robustness import faults
+from ..robustness.healing import retry_io
+from ..robustness.integrity import file_sha256
 from ..runtime.device import to_host
 
 
@@ -49,19 +54,6 @@ class CheckpointWriteError(RuntimeError):
         super().__init__(
             f"{len(self.errors)} checkpoint write(s) failed: "
             + "; ".join(repr(e) for e in self.errors[:3]))
-
-
-def retry_io(fn: Callable[[], object], *, attempts: int = 3,
-             backoff_s: float = 0.05):
-    """``fn()`` with bounded retry and exponential backoff on ``OSError``;
-    re-raises the last one after ``attempts`` failures."""
-    for a in range(attempts):
-        try:
-            return fn()
-        except OSError:
-            if a == attempts - 1:
-                raise
-            time.sleep(backoff_s * (2 ** a))
 
 
 def atomic_write_json(path: str, obj) -> None:
@@ -127,14 +119,6 @@ def _unflatten(template, data, prefix: str = ""):
     out = {k: _unflatten(v, data, f"{prefix}/{k}" if prefix else str(k))
            for k, v in _children(template)}
     return out if isinstance(template, dict) else type(template)(**out)
-
-
-def file_sha256(path: str) -> str:
-    h = hashlib.sha256()
-    with open(path, "rb") as f:
-        for chunk in iter(lambda: f.read(1 << 20), b""):
-            h.update(chunk)
-    return h.hexdigest()
 
 
 def atomic_save_npz(path: str, arrays: Dict[str, np.ndarray]) -> str:
@@ -217,13 +201,14 @@ class CheckpointManager:
 
     def submit_blob(self, path: str, data: bytes):
         """Queue pre-serialized bytes (see :func:`npz_bytes`) for an atomic
-        async write to ``path``. The caller records the sha256 of ``data``
-        before enqueueing; a write that fails after bounded retries
-        surfaces from ``wait()``/``close()``."""
+        async write to ``path`` through the ``db.artifact_write`` fault
+        site (the family engine's stage artifacts stream through here). The caller
+        records the sha256 of ``data`` before enqueueing; a write that
+        fails after bounded retries surfaces from ``wait()``/``close()``."""
         if self._async:
             self._q.put(("blob", path, data))
         else:
-            retry_io(lambda: atomic_write_bytes(path, data))
+            self._write_blob(path, data)
 
     def _drain(self):
         while True:
@@ -233,7 +218,7 @@ class CheckpointManager:
                     return
                 if item[0] == "blob":
                     _, path, data = item
-                    retry_io(lambda: atomic_write_bytes(path, data))
+                    self._write_blob(path, data)
                 else:
                     _, step, host = item
                     self._write(step, host)
@@ -244,9 +229,20 @@ class CheckpointManager:
                 # return while a checkpoint is in flight
                 self._q.task_done()
 
+    @staticmethod
+    def _write_blob(path: str, data: bytes):
+        _, rule = retry_io(lambda: atomic_write_bytes(path, data),
+                           site="db.artifact_write")
+        faults.corrupt_if(rule, path)
+
     def _write(self, step: int, host: Dict[str, np.ndarray]):
         path = self._ckpt_path(step)
-        digest = retry_io(lambda: atomic_save_npz(path, host))
+        # a persistent failure re-raises into _drain's error list and
+        # surfaces at wait(); a corrupt rule leaves a file whose sha256 no
+        # longer matches the manifest, which latest_step() then skips
+        digest, rule = retry_io(lambda: atomic_save_npz(path, host),
+                                site="ckpt.async_write")
+        faults.corrupt_if(rule, path)
         manifest = self._read_manifest()
         manifest["checkpoints"] = [c for c in manifest.get("checkpoints", [])
                                    if c["step"] != step]

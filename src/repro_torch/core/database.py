@@ -24,6 +24,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..robustness import faults
+from ..robustness.healing import damp_schedule
+from ..robustness.report import current_report
 from ..runtime.device import (DeviceLike, resolve_device, synchronize,
                               to_host)
 from .obs import (build_hessian, module_drop_error, module_drop_errors,
@@ -31,10 +34,6 @@ from .obs import (build_hessian, module_drop_error, module_drop_errors,
                   prune_structured_batched_compact, prune_structured_compact)
 from .structures import (UNITS, PrunableModule, copy_tree, get_matrix,
                          level_grid, registry, set_matrix)
-
-# damping-escalation ladder: retries beyond the caller's damp, each one
-# decade up (damp * 10**k) — bounded so a hopeless Hessian fails loudly
-DAMP_RETRIES = 4
 
 # the snapshots' round trip through host memory: bytes and seconds of the
 # database's fetch of each chunk's float16 snapshots (timed from a
@@ -47,12 +46,6 @@ SNAPSHOT_TRAFFIC = {"fetch_bytes": 0, "fetch_s": 0.0,
 def reset_snapshot_traffic() -> None:
     SNAPSHOT_TRAFFIC.update(fetch_bytes=0, fetch_s=0.0, upload_bytes=0,
                             upload_s=0.0)
-
-
-def damp_schedule(damp: float, retries: int = DAMP_RETRIES) -> List[float]:
-    """The percdamp escalation ladder ``damp * 10**k``; rung 0 is exactly
-    the caller's damp."""
-    return [damp * (10.0 ** k) for k in range(retries + 1)]
 
 
 def _inverse_or_nan(h: torch.Tensor) -> torch.Tensor:
@@ -112,11 +105,15 @@ def _prune_healed(prune_fn, Ws, Hraw, *, group_size, n_remove, levels,
     Rung 0 is the caller's damp, so a run that never escalates is the
     un-healed computation; the snapshots are checked on their device and
     fetched only when the rung is finite. Each failed rung names the
-    modules that failed and where.
+    modules that failed and where, and counts as detected and retried at
+    ``obs.cholesky`` in the ambient report (a healed chunk as recovered);
+    that fault site poisons the inverse Hessian of one rung.
     """
+    rep = current_report()
     rungs = damp_schedule(damp)
     for attempt, rung in enumerate(rungs):
-        Hinv = _inverse_or_nan(build_hessian(Hraw, rung))
+        Hinv = faults.poison_array(
+            "obs.cholesky", _inverse_or_nan(build_hessian(Hraw, rung)))
         res = prune_fn(Ws, Hinv, group_size=group_size, n_remove=n_remove,
                        levels=levels)
         errs = res.errors.cpu().numpy()
@@ -124,6 +121,7 @@ def _prune_healed(prune_fn, Ws, Hraw, *, group_size, n_remove, levels,
         bad = _non_finite_report(names, levels, errs, snap_ok)
         if not bad:
             if attempt:
+                rep.count("recovered", "obs.cholesky")
                 print(f"[robustness] obs: healed non-finite prune at "
                       f"damp={rung:g} (rung {attempt})")
             # sync: DB materialization — fetched once per chunk
@@ -133,6 +131,8 @@ def _prune_healed(prune_fn, Ws, Hraw, *, group_size, n_remove, levels,
             SNAPSHOT_TRAFFIC["fetch_s"] += time.perf_counter() - t0
             SNAPSHOT_TRAFFIC["fetch_bytes"] += snaps16.nbytes
             return snaps16, errs, res.order.cpu().numpy()
+        rep.count("detected", "obs.cholesky")
+        rep.count("retries", "obs.cholesky")
         print(f"[robustness] obs: non-finite prune at damp={rung:g} in "
               f"{len(bad)} of {len(names)} module(s): " + "; ".join(bad))
     raise FloatingPointError(

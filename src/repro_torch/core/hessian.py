@@ -5,10 +5,12 @@ CPU). The kernel seeds its accumulator from the running Hessian, so
 ``H + X^T X`` is one pass.
 
 Numerical self-healing: if any captured activation of a batch is
-non-finite, the whole batch is skipped for every module, so the result
-equals a clean run over the remaining batches exactly. Every batch costs
-one host sync for that check, which also keeps the accumulation from
-launching on a batch it would throw away.
+non-finite, the whole batch is skipped for every module (counted as
+detected and recovered at ``calib.batch``), so the result equals a clean
+run over the remaining batches exactly. Every batch costs one host sync
+for that check, which also keeps the accumulation from launching on a
+batch it would throw away. The ``calib.batch`` fault site poisons one
+batch's captures; a batch whose rule does not fire is not touched.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ import torch
 
 from ..kernels import hessian_accum
 from ..models.transformer import forward
+from ..robustness import faults
+from ..robustness.report import current_report
 from ..runtime.device import DeviceLike, resolve_device
 from .structures import get_capture, registry
 
@@ -47,12 +51,15 @@ def collect_hessians(cfg, params, batches: List[Dict], *,
     skipped = 0
     with torch.no_grad():
         for batch in batches:
+            poison = faults.poison_scalar("calib.batch")
             # an encoder/decoder's frames ride beside the tokens
             frames = ({"frontend_embeds": batch["frontend"].to(dev)}
                       if "frontend" in batch else {})
             caps = forward(cfg, params, batch["tokens"].to(dev),
                            capture=True, **frames)["captures"]
             xs = {m.name: get_capture(caps, m) for m in mods}
+            if poison != 1.0:  # an injected fault: poison this batch
+                xs = {k: (x * poison, v) for k, (x, v) in xs.items()}
             ok = torch.stack([torch.isfinite(x).all()
                               for x, _ in xs.values()]).all()
             if not bool(ok):  # sync: one per batch, the skip decision
@@ -64,6 +71,9 @@ def collect_hessians(cfg, params, batches: List[Dict], *,
                 counts[m.name] += float(x.shape[0]) if valid is None \
                     else float(valid.sum())
     if skipped:
+        rep = current_report()
+        rep.count("detected", "calib.batch", skipped)
+        rep.count("recovered", "calib.batch", skipped)
         print(f"[robustness] calib: skipped {skipped}/{len(batches)} "
               f"non-finite calibration batch(es)")
     if skipped == len(batches):

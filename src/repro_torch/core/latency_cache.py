@@ -171,3 +171,17 @@ class LatencyCache:
         path = self._path(key)
         atomic_write_json(path, rec)
         return path
+
+    def quarantine(self, cfg, env: cm.InferenceEnv,
+                   device: DeviceLike = None,
+                   **measure_kw) -> Optional[str]:
+        """Rename this key's cache file to ``*.corrupt`` and record it in
+        the ambient RobustnessReport (the measurement-failure demotion: an
+        entry implicated in a failed measurement is not served again).
+        Returns the quarantine path, or None when there was no file or
+        the rename failed."""
+        from ..robustness.integrity import quarantine_file
+        path = self._path(cache_key(cfg, env, measure_kw, device))
+        if not os.path.exists(path):
+            return None
+        return quarantine_file(path, site="latency.measure")

@@ -21,6 +21,7 @@ import torch
 
 from ..models.model import loss_fn
 from ..models.transformer import tree_to
+from ..robustness import faults
 from ..runtime.costmodel import InferenceEnv
 from ..runtime.device import DeviceLike, resolve_device, synchronize
 from .database import (ModuleDB, SnapshotCache, apply_assignment,
@@ -78,10 +79,12 @@ def make_batched_eval(cfg, params, cache: SnapshotCache, batches,
     """Population scorer for `spdy.search_family`: stitch each assignment
     on the device (`SnapshotCache.apply`) and score it with a
     calibration-loss forward; the losses stay on the device until the one
-    host sync at the end of the call."""
+    host sync at the end of the call. Each call hits the
+    ``spdy.batched_eval`` fault site first."""
     loss = calib_loss_fn(cfg, batches, device)
 
     def eval_batched(assignments: List[Dict[str, int]]) -> np.ndarray:
+        faults.hit("spdy.batched_eval")
         vals = [loss.tensor(cache.apply(params, a)) for a in assignments]
         # sync: the one host pull per SPDY round
         return torch.stack(vals).double().cpu().numpy()

@@ -105,10 +105,13 @@ queued; the done-restore path finds the missing or corrupt file and
 rolls the target back to ``search``. Each target's record carries
 ``stage_times`` (seconds per stage; ``export`` is the tail).
 
+Every artifact write goes through the ``db.artifact_write`` fault site
+(``robustness/faults.py``): an injected transient ``OSError`` is retried,
+and the ``corrupt`` mode flips bytes after the write, so the sha256 in
+the manifest catches the file on its next load and the stage runs again.
+
 Not ported yet: the mesh arguments (``mesh``, ``data_axes``, ``mc``,
-``specs``; ROADMAP Queue 1 item 6), which raise ``NotImplementedError``,
-and the ``db.artifact_write`` fault site with its corrupt-after-write
-mode (item 5).
+``specs``; ROADMAP Queue 1 item 6), which raise ``NotImplementedError``.
 
 One deliberate difference from the JAX package: a variant's ``pruned``
 model is shrunk from its finetuned params (``shrink_from_stitched``). The
@@ -135,11 +138,13 @@ import torch
 from ..checkpoint.manager import (CheckpointManager, CheckpointWriteError,
                                   _flatten, atomic_save_npz,
                                   atomic_write_json, file_sha256, load_json,
-                                  npz_bytes, restore_pytree, retry_io)
+                                  npz_bytes, restore_pytree)
 from ..configs.base import TrainConfig
 from ..models.pruned import PrunedModel, refuse_cross_attention
 from ..models.transformer import tree_to
 from ..optim.adamw import tree_leaves, tree_map
+from ..robustness import faults
+from ..robustness.healing import retry_io
 from ..robustness.integrity import checked_npz_load, quarantine_file
 from ..robustness.report import RobustnessReport, report_scope
 from ..runtime.device import DeviceLike, resolve_device, to_host
@@ -334,11 +339,14 @@ class FamilyRunState:
 # ----------------------------------------------------------------------
 
 def _save_artifact(path: str, arrays: Dict[str, np.ndarray]) -> str:
-    """Atomic npz write; transient ``OSError``s retry with backoff.
-    Returns the written file's sha256. (The reference writes through its
-    ``db.artifact_write`` fault site, whose corrupt mode flips bytes after
-    the write; the port's fault sites come with ROADMAP Queue 1 item 5.)"""
-    return retry_io(lambda: atomic_save_npz(path, arrays))
+    """Atomic npz write through the ``db.artifact_write`` fault site:
+    transient ``OSError``s retry with backoff, and a ``corrupt`` rule
+    flips bytes after the write, so the recorded sha256 catches the file
+    on its next load. Returns the written file's sha256."""
+    sha, rule = retry_io(lambda: atomic_save_npz(path, arrays),
+                         site="db.artifact_write")
+    faults.corrupt_if(rule, path)
+    return sha
 
 
 def _stream_artifact(mgr: CheckpointManager, path: str,
@@ -347,7 +355,8 @@ def _stream_artifact(mgr: CheckpointManager, path: str,
     caller's thread, enqueue the bytes on the manager's bounded queue,
     return the digest at once. npz serialization is deterministic, so the
     digest recorded in the manifest before the enqueue is that of the
-    bytes the worker later writes; a write that fails after its retries
+    bytes the worker later writes, through the same ``db.artifact_write``
+    site as ``_save_artifact``; a write that fails after its retries
     surfaces at ``mgr.wait()``, which every preemption point and the end
     of the run call before reporting stages durable."""
     data, sha = npz_bytes(arrays)

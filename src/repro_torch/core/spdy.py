@@ -22,6 +22,12 @@ acceptance with the scalar `dp_select` and per-candidate ``eval_fn``:
 the equivalence reference (for the analytic score, bit-identical
 results). Host-side numpy throughout; the same seed gives the same
 candidates as the JAX package's engine.
+
+Degradation: when the batched scorer fails with a fault injected at
+``spdy.batched_eval`` or a CUDA out-of-memory error, the ``spdy.batched_eval`` breaker of the
+ambient report opens and that round and every later one score serially
+(``eval_fn``), with the same memo and acceptances. Any other failure
+raises.
 """
 from __future__ import annotations
 
@@ -30,6 +36,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
+from ..robustness.healing import demotable
+from ..robustness.report import current_report
 from .database import ModuleDB
 from .latency import LatencyTable
 
@@ -242,6 +250,7 @@ def search_family(db: Dict[str, ModuleDB], table: LatencyTable,
     producer: Dict[tuple, np.ndarray] = {}  # choices-tuple -> coeffs row
     n_evals = 0
     analytic = eval_fn is None and eval_batched is None
+    rep = current_report()
 
     rnd = 0
     while any(d < steps for d in done):
@@ -281,11 +290,22 @@ def search_family(db: Dict[str, ModuleDB], table: LatencyTable,
             if analytic:
                 vals = [float(sum(p[c] ** 2 for p, c in zip(priors, key)))
                         for key in new_keys]
-            elif batched and eval_batched is not None:
-                vals = np.asarray(eval_batched([assemble(key)
-                                                for key in new_keys]),
-                                  np.float64)
             else:
+                vals = None
+                if (batched and eval_batched is not None
+                        and not rep.breaker_open("spdy.batched_eval")):
+                    try:
+                        vals = np.asarray(eval_batched(
+                            [assemble(key) for key in new_keys]), np.float64)
+                    except Exception as e:
+                        if not demotable(e, "spdy.batched_eval"):
+                            raise
+                        # the degradation rung: this round and every later
+                        # one score serially, with the same memo and the
+                        # same acceptance stream
+                        rep.trip("spdy.batched_eval",
+                                 reason=f"batched eval failed: {e!r}")
+            if vals is None:
                 fn = eval_fn if eval_fn is not None else \
                     (lambda a: float(eval_batched([a])[0]))
                 vals = [float(fn(assemble(key))) for key in new_keys]

@@ -7,7 +7,8 @@ one is never loaded. Libraries go to ``build/kernels/`` at the root of
 the checkout. ``build_all`` starts one ``nvcc`` per source, all at once.
 
 Nothing here runs at import time: the first launch of a kernel builds
-(or finds) its library.
+(or finds) its library. Every wrapper's call passes :func:`dispatch`,
+the ``kernel.pallas`` fault site, first.
 """
 from __future__ import annotations
 
@@ -19,12 +20,22 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, List
 
+from ..robustness import faults
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def dispatch() -> None:
+    """The ``kernel.pallas`` fault site, hit by each kernel wrapper's call
+    before it dispatches, on either device. An injected failure raises
+    out of the wrapper before a launch is counted: the port has no
+    fall-back from a kernel to its plain version."""
+    faults.hit("kernel.pallas")
 
 
 def nvcc_path() -> str:

@@ -125,6 +125,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     launches in ``flash_attention.launches``. The kernel has no backward:
     a launch with grad mode on and an input that requires grad raises (the
     plain version on the CPU stays differentiable)."""
+    build.dispatch()
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)

@@ -159,6 +159,7 @@ def hessian_accum(x: torch.Tensor, acc: Optional[torch.Tensor] = None
     one pass when ``acc`` (D, D) fp32 is given. Counts its calls that
     launch the kernel in ``hessian_accum.launches`` (one per call, though
     a call with a split of N runs two CUDA kernels)."""
+    build.dispatch()
     if x.device.type == "cpu":
         return hessian_accum_plain(x, acc)
     if x.device.type != "cuda":

@@ -69,6 +69,7 @@ def obs_downdate(W, Hinv, HcolS, KsWS, KsHcolT, keep,
     (M, d_in, d_in), HcolS (M, d_in, gs), KsWS (M, gs, d_out), KsHcolT
     (M, gs, d_in), keep (M, d_in). Counts its kernel launches in
     ``obs_downdate.launches``."""
+    build.dispatch()
     if W.device.type == "cpu":
         return obs_downdate_plain(W, Hinv, HcolS, KsWS, KsHcolT, keep, d_live)
     if W.device.type != "cuda":

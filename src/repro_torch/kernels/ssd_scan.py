@@ -320,6 +320,7 @@ def ssd_intra_chunk(xdt, dacs, B, C) -> Tuple[torch.Tensor, torch.Tensor]:
     tensors, though a chunk above 128 rows also runs a reduction); the
     backward kernel counts its own in
     ``ssd_intra_chunk_backward.launches``."""
+    build.dispatch()
     return SsdIntraChunk.apply(xdt, dacs, B, C)
 
 
@@ -524,6 +525,7 @@ def ssd_intra_chunk_backward(xdt, dacs, B, C, dy, dstates):
     ``ssd_intra_chunk_backward.launches`` (one per call, though the
     kernel runs as four passes, six for a chunk above one tile), and the
     plain version for tensors on the CPU."""
+    build.dispatch()
     if xdt.device.type == "cpu":
         return ssd_intra_chunk_backward_plain(xdt, dacs, B, C, dy, dstates)
     _check_backward(xdt, dacs, B, C, dy, dstates)

@@ -4,17 +4,25 @@ A stage artifact whose recorded sha256 (the family manifest's) no longer
 matches its bytes, or that fails to parse at all, is renamed
 ``*.corrupt`` (never deleted: the bytes are the bug report) and the load
 returns None, which makes the owning stage run again instead of the
-resume crashing. ``file_sha256`` is the checkpoint manager's.
+resume crashing. ``file_sha256`` is also the checkpoint manager's.
 """
 from __future__ import annotations
 
+import hashlib
 import os
 from typing import Dict, Optional
 
 import numpy as np
 
-from ..checkpoint.manager import file_sha256
 from .report import current_report
+
+
+def file_sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
 
 
 def quarantine_file(path: str, site: str = "artifact") -> Optional[str]:

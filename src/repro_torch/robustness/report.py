@@ -8,8 +8,9 @@ one per family run; the module-level default catches everything else).
 Counting is additive and never changes numerics, so code under an
 untouched default report gives the same bits as code under a scoped one.
 
-The port counts quarantined artifacts only so far; its fault sites
-(``calib.batch``, ``db.artifact_write``, ...) are not ported yet.
+The fault sites (``robustness/faults.py``) count what they inject, the
+healing paths what they detect, retry and recover, and the degradation
+rungs (``latency.measure``, ``spdy.batched_eval``) trip their breakers.
 """
 from __future__ import annotations
 

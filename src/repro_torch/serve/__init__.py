@@ -39,8 +39,10 @@ target of a family on the device from one resident ``SnapshotCache`` and
 routes each request by its latency class to the smallest member target
 that meets the class's speedup demand.
 
-The reference's ``serve.step`` fault site and its retry are not ported
-(ROADMAP Queue 1 item 5, robustness); non-finite logits raise.
+A decode step goes through the ``serve.step`` fault site: a failed step
+(an injected fault, or non-finite logits on an active slot) is counted
+and recomputed, at most ``engine._STEP_RETRIES`` times; a prefill's
+non-finite logits raise.
 """
 from .engine import (DenseServeModel, PrunedServeModel, RequestRecord,
                      ServeEngine, ServeReport)

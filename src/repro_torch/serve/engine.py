@@ -13,9 +13,18 @@ Both hold their weights cast once to the compute dtype (the ops would
 cast them on every call to the same values), and both prefill through
 the flash path whatever the config's ``attn_impl`` says: on the card
 every served prompt goes through the hand-written flash-attention
-kernel (a CPU tensor takes its plain version). Caches are updated in
-place, so a step that fails cannot be recomputed from the cache it
-consumed: non-finite logits on an active slot raise.
+kernel (a CPU tensor takes its plain version).
+
+A decode step passes the ``serve.step`` fault site and is retried at most
+``_STEP_RETRIES`` times: an injected failure, or non-finite logits on an
+active slot, is counted in the ambient report and the step recomputed
+from the cache it was given. The caches' k/v are updated in place, but a
+step writes only row ``pos`` of each slot (an idle slot past the cache,
+its last row), from that slot's token, position and earlier rows, none
+of which an attempt changes: a recomputed step writes the rows it wrote
+before with the same values. The positions advance (``pos + 1`` in the
+cache a step returns) only when a step succeeds. A prefill's non-finite
+logits raise.
 """
 from __future__ import annotations
 
@@ -33,7 +42,12 @@ from ..models.pruned import (PrunedLayer, PrunedModel, _check_decodable,
                              decode_step_pruned, init_cache_pruned,
                              prefill_pruned)
 from ..models.transformer import decode_step, forward, init_cache
+from ..robustness import faults
+from ..robustness.report import current_report
 from .workload import Request
+
+# attempts of one decode step before the engine gives up
+_STEP_RETRIES = 4
 
 
 def _bucket(s: int, max_len: int) -> int:
@@ -211,17 +225,6 @@ class ServeReport:
         return d
 
 
-def _host_logits(logits: torch.Tensor, rows, what: str) -> np.ndarray:
-    """The logits on the host (on the card this pull is the synchronize
-    that ends a timed step); raises if a row in ``rows`` is not finite."""
-    lg = logits.float().cpu().numpy()
-    if not np.isfinite(lg[rows]).all():
-        raise FloatingPointError(
-            f"{what} produced non-finite logits; the KV cache was updated "
-            "in place, so the step cannot be recomputed")
-    return lg
-
-
 class ServeEngine:
     """Continuous batching over ``num_slots`` decode slots.
 
@@ -258,12 +261,37 @@ class ServeEngine:
             logits.cpu()
 
     def _step(self, tokens: np.ndarray, active_slots: List[int]):
-        """One batched decode step; returns the host logits."""
+        """One batched decode step through the ``serve.step`` fault site,
+        recomputed after a failed attempt (module docstring); returns the
+        host logits. ``self.cache`` takes the step's cache only when an
+        attempt succeeds."""
+        rep = current_report()
         toks = torch.from_numpy(tokens.reshape(-1, 1)).to(self.model.device)
-        logits, self.cache = self.model.step(self.cache, toks)
-        # sync: one pull per decode step; greedy sampling and the finite
-        # check both need the host logits
-        return _host_logits(logits, active_slots, "decode step")
+        for attempt in range(_STEP_RETRIES):
+            try:
+                poison = faults.poison_scalar("serve.step")
+            except faults.INJECTED:
+                rep.count("detected", "serve.step")
+                rep.count("retries", "serve.step")
+                continue
+            logits, cache = self.model.step(self.cache, toks)
+            if poison != 1.0:  # an injected fault: poison the logits
+                logits = logits * poison
+            # sync: one pull per decode step (on the card the synchronize
+            # that ends a timed step); greedy sampling and the finite
+            # check both need the host logits
+            lg = logits.float().cpu().numpy()
+            if not np.isfinite(lg[active_slots]).all():
+                rep.count("detected", "serve.step")
+                rep.count("retries", "serve.step")
+                continue
+            if attempt:
+                rep.count("recovered", "serve.step")
+            self.cache = cache
+            return lg
+        raise RuntimeError(
+            f"serve.step failed {_STEP_RETRIES} times in a row: the fault "
+            "is not transient")
 
     @torch.no_grad()
     def run(self, requests: List[Request]) -> ServeReport:
@@ -307,7 +335,11 @@ class ServeEngine:
                                                    req.prompt_len)
                     # sync: one pull per admission; the first token gates
                     # whether the request enters the decode batch at all
-                    lg = _host_logits(logits, slice(None), "prefill")
+                    lg = logits.float().cpu().numpy()
+                    if not np.isfinite(lg).all():
+                        raise FloatingPointError(
+                            f"prefill of request {req.rid} produced "
+                            "non-finite logits")
                 tok = int(np.argmax(lg[0, 0]))
                 dt = self.clock() - t0
                 t += dt

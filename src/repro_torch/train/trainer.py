@@ -13,7 +13,9 @@
   the state it is given, so params, m, v and count stay as they were).
   After ``max_bad_steps`` bad steps in a row the last checkpoint is
   reloaded; a second reload with no progress in between raises. Guard
-  events are in ``self.guard``. The guard reads the loss value ``fit``
+  events are in ``self.guard``, and each bad step counts as detected
+  and (once skipped or reloaded) recovered at ``train.step`` in the
+  ambient robustness report. The guard reads the loss value ``fit``
   already syncs on, so a clean run is bit-identical with the guard on or
   off.
 
@@ -34,6 +36,7 @@ import numpy as np
 from ..checkpoint.manager import CheckpointManager
 from ..configs.base import TrainConfig
 from ..models.transformer import tree_to
+from ..robustness.report import current_report
 from ..runtime.device import DeviceLike, resolve_device
 from .train_step import TrainState, make_train_state, make_train_step
 
@@ -134,6 +137,8 @@ class Trainer:
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0
             if self.nan_guard and self._loss_is_bad(loss):
+                rep = current_report()
+                rep.count("detected", "train.step")
                 self._bad_streak += 1
                 self.guard["skipped"].append(done + 1)
                 print(f"[trainer] bad loss {loss!r} at step {done + 1}; "
@@ -153,6 +158,7 @@ class Trainer:
                     done = int(state.step)
                     print(f"[trainer] {self.max_bad_steps} consecutive bad "
                           f"steps; reloaded the checkpoint at step {done}")
+                rep.count("recovered", "train.step")
                 continue  # the update is discarded
             self._bad_streak = 0
             if self.nan_guard:

@@ -27,7 +27,9 @@ uninterrupted one. The measured latency table's entries within 20% of
 the profiler's device time a call of their modules. The smoke models with
 frames (Whisper, Llama-3.2-Vision with one and two cross groups), gates
 open: logits card against CPU 1e-4 of their scale, greedy tokens through
-the cross cache equal.
+the cross cache equal. Under fault plans: an injected ``kernel.pallas``
+failure raises out of each wrapper on CUDA tensors before it launches,
+and decode steps recomputed after a failure give the clean tokens.
 """
 import json
 import os
@@ -60,8 +62,11 @@ from repro_torch.kernels.ssd_scan import intra_chunk_inputs, ssd_chunked
 from repro_torch.models import forward, generate, model_init
 from repro_torch.models.transformer import tree_to
 from repro_torch.optim.adamw import tree_leaves
+from repro_torch.robustness import (FaultInjected, FaultPlan, install,
+                                    report_scope)
 from repro_torch.runtime.costmodel import HardwareSpec, InferenceEnv
 from repro_torch.runtime.device import to_host
+from repro_torch.serve import DenseServeModel, ServeEngine, synthetic_requests
 from repro_torch.train import (Trainer, make_train_state, make_train_step)
 
 
@@ -1067,3 +1072,76 @@ def test_compacted_database_on_the_card_keeps_the_plain_orders(cuda_device,
             gone = set(got.order[:lvl].tolist())
             assert len(gone ^ set(want.order[:lvl].tolist())) // 2 <= \
                 max(1, n // 50), (name, int(lvl))
+
+
+def _kernel_calls(dev):
+    """One call of each kernel wrapper on small tensors on the card."""
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def r(*shape):
+        return torch.randn(shape, device=dev, generator=g)
+
+    xdt, dacs, B, C = _intra_chunk_inputs(1, 2, 32, 2, 16, 8, dev, 3)
+    return {
+        "hessian_accum": (hessian_accum, lambda: hessian_accum(r(64, 32))),
+        "obs_downdate": (obs_downdate, lambda: obs_downdate(
+            r(1, 8, 4), r(1, 8, 8), r(1, 8, 1), r(1, 1, 4), r(1, 1, 8),
+            torch.ones((1, 8), device=dev))),
+        "flash_attention": (flash_attention, lambda: flash_attention(
+            r(1, 64, 2, 64), r(1, 64, 2, 64), r(1, 64, 2, 64))),
+        "ssd_intra_chunk": (ssd_intra_chunk,
+                            lambda: ssd_intra_chunk(xdt, dacs, B, C)),
+        "ssd_intra_chunk_backward": (
+            ssd_intra_chunk_backward, lambda: ssd_intra_chunk_backward(
+                xdt, dacs, B, C, r(*xdt.shape), r(1, 2, 2, 16, 8))),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["hessian_accum", "obs_downdate",
+                                  "flash_attention", "ssd_intra_chunk",
+                                  "ssd_intra_chunk_backward"])
+def test_injected_kernel_failure_raises_on_the_card(cuda_device, name):
+    """``kernel.pallas:raise@0`` on CUDA tensors: the wrapper raises the
+    injected failure before it launches (its counter unchanged), nothing
+    falls back to the plain version and no breaker opens; the next call
+    launches."""
+    kernel, call = _kernel_calls(cuda_device)[name]
+    with torch.no_grad():
+        before = kernel.launches
+        with install(FaultPlan.parse("kernel.pallas:raise@0")), \
+                report_scope() as rep:
+            with pytest.raises(FaultInjected, match="kernel.pallas"):
+                call()
+            assert kernel.launches == before
+            call()
+        torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert rep.total("demotions") == 0 and not rep.as_dict()["breakers_open"]
+
+
+@pytest.mark.cuda
+def test_recomputed_decode_steps_on_the_card_give_the_clean_tokens(
+        cuda_device):
+    """``serve.step:nan@2,serve.step:raise@4`` on a dense GPT-2 in fp32 on
+    the card: the recomputed steps give the clean run's tokens, and the
+    caches they updated in place end with the clean run's bits."""
+    cfg = smoke_config("gpt2-small").replace(dtype="float32")
+    params = model_init(cfg, torch.Generator().manual_seed(0),
+                        device=cuda_device)
+    reqs = synthetic_requests(cfg, 6, seed=3, rate=300.0,
+                              prompt_lens=(5, 9, 13), steps_range=(3, 8))
+
+    def serve():
+        eng = ServeEngine(DenseServeModel(cfg, params, 64), num_slots=2)
+        return [r.tokens for r in eng.run(reqs).records], eng.cache
+
+    want, clean_cache = serve()
+    with install(FaultPlan.parse("serve.step:nan@2,serve.step:raise@4")), \
+            report_scope() as rep:
+        got, cache = serve()
+    assert got == want
+    assert rep.counts["recovered"] == {"serve.step": 2}
+    assert all(torch.equal(clean_cache["attn"][k], cache["attn"][k])
+               for k in ("k", "v"))
+    assert torch.equal(clean_cache["pos"], cache["pos"])
