@@ -282,6 +282,22 @@ Phases (any failure exits non-zero and prints no result):
    ``chaos_launches``. After the last phase the process's default
    robustness report holds no injection, open breaker or demotion, and
    no report counted an injection or a demotion outside phase 17.
+18. the sharded calibration and database (run right after phase 4, on
+   its GPT-2 small, calibration batches and database): two ranks share
+   the card through ``launch.subproc.run_ranks`` (gloo groups staged
+   through host memory), each rebuilds phase 4's weights and tokens from
+   their seeds and shows the parent's checksum of them. (a)
+   ``collect_hessians(mesh=...)`` within 1e-5 of max |H| of a clean
+   single-process ``collect_hessians`` in the parent; (b)
+   ``build_database(mesh=...)`` fed the parent's Hessians, phase 4's
+   database bit for bit (orders, errors, snapshots); (c) (b) under
+   ``db.sharded_group:raise@0``: the first chunk demoted on both ranks,
+   the breaker tripped once, (b)'s database bit for bit; (d)
+   ``oneshot_prune(mesh=...)`` on the cost model priced with
+   ``H100_SXM``, scored by the analytic prior, phase 4's targets: the
+   parent's single-process call's assignments and speedups on both
+   ranks. Seconds per part and JSON ``sharded_launches`` (each rank's
+   launches of hessian_accum and obs_downdate, all above 0).
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 product on the
 card is a full fp32 product and the fp32 tolerances below hold. The train
@@ -1766,19 +1782,27 @@ def check_ceiling(res, expected, what):
           f"0.95 x {expected}x")
 
 
-def run_main_path(torch, kernels):
-    """Phase 4: oneshot_prune on full-width GPT-2 small at MAIN_LAYERS."""
+def main_model(torch):
+    """Phase 4's model on the card and its calibration batches: GPT-2
+    small at MAIN_LAYERS from seed 0, 32 x 512 tokens in batches of 8."""
     from repro_torch.configs import GPT2_SMALL
-    from repro_torch.core.oneshot import oneshot_prune
     from repro_torch.data import calibration_batches
     from repro_torch.models import model_init
-    from repro_torch.runtime.costmodel import InferenceEnv
 
     cfg = GPT2_SMALL.replace(num_layers=MAIN_LAYERS)
-    t0 = time.perf_counter()
     params = model_init(cfg, torch.Generator().manual_seed(0), device="cuda")
     calib = calibration_batches(cfg, 32, 512, batch=8)
     torch.cuda.synchronize()
+    return cfg, params, calib
+
+
+def run_main_path(torch, kernels):
+    """Phase 4: oneshot_prune on full-width GPT-2 small at MAIN_LAYERS."""
+    from repro_torch.core.oneshot import oneshot_prune
+    from repro_torch.runtime.costmodel import InferenceEnv
+
+    t0 = time.perf_counter()
+    cfg, params, calib = main_model(torch)
     setup_s = time.perf_counter() - t0
     env = InferenceEnv(batch=16, seq=128, mode="prefill", hw=None)
     targets = MAIN_TARGETS
@@ -4499,6 +4523,188 @@ def run_chaos_path(torch, kernels, cfg, params, calib, db, table, fam):
     return launches
 
 
+# phase 18: two ranks on the card, gloo groups; a rank's collectives and
+# the launch time out (a hung rank costs this much of the 1200 s at most)
+SHARDED_RANKS = 2
+SHARDED_TIMEOUT = 240
+SHARDED_KERNELS = ONESHOT_KERNELS
+SHARDED_SEARCH = {"search_steps": 48, "search_pop": 16, "seed": 0}
+# each rank imports this file and runs sharded_rank (ROOT and WORK are
+# prepended)
+SHARDED_SCRIPT = """
+import sys
+
+sys.path.insert(0, ROOT)
+import chip_smoke
+
+chip_smoke.sharded_rank(WORK)
+"""
+
+
+def weights_checksum(params, calib) -> str:
+    """sha256 of every weight's bytes and every calibration token."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in _leaves(params) + [b["tokens"] for b in calib]:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def db_digests(db):
+    """Per module: its removal order and errors (lists) and the sha256 of
+    its float16 snapshots."""
+    import hashlib
+    return {n: {"order": m.order.tolist(), "errors": m.errors.tolist(),
+                "snapshots": hashlib.sha256(m.snapshots.tobytes()).hexdigest()}
+            for n, m in db.items()}
+
+
+def family_of(res):
+    return {str(t): [v.assignment, v.speedup]
+            for t, v in res.variants.items()}
+
+
+def sharded_env():
+    from repro_torch.runtime.costmodel import H100_SXM, InferenceEnv
+    return InferenceEnv(batch=16, seq=128, mode="prefill", hw=H100_SXM)
+
+
+def sharded_rank(work: str) -> None:
+    """Phase 18's rank program (both ranks): phase 4's model rebuilt,
+    then (a)-(d) over a 2-rank mesh; prints the rank's RESULT line."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.subproc import emit_result, init_rank
+
+    rank, world, _ = init_rank(timeout=SHARDED_TIMEOUT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import kernels
+    from repro_torch.core.database import build_database
+    from repro_torch.core.hessian import collect_hessians
+    from repro_torch.core.oneshot import oneshot_prune
+    from repro_torch.distributed import make_mesh
+    from repro_torch.robustness import FaultPlan, install, report_scope
+
+    t0 = time.perf_counter()
+    cfg, params, calib = main_model(torch)
+    out = {"rank": rank, "checksum": weights_checksum(params, calib),
+           "seconds": {}}
+    mesh = make_mesh((world,), ("data",))
+    with np.load(os.path.join(work, "hessians.npz")) as f:
+        clean = {k: torch.from_numpy(f[k]).cuda() for k in f.files}
+    with open(os.path.join(work, "phase4_db.json")) as f:
+        phase4 = json.load(f)
+    out["seconds"]["setup"] = time.perf_counter() - t0
+
+    def timed(part, fn):
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        out["seconds"][part] = time.perf_counter() - t0
+        return got
+
+    kernels.reset_launch_counts()
+    hess = timed("a", lambda: collect_hessians(cfg, params, calib,
+                                               mesh=mesh, device="cuda"))
+    out["a_keys"] = list(hess) == list(clean)
+    out["a_rel"] = max(float((hess[k] - clean[k]).abs().max()
+                             / clean[k].abs().max()) for k in clean)
+    db = timed("b", lambda: build_database(cfg, params, clean, mesh=mesh,
+                                           device="cuda"))
+    got = db_digests(db)
+    out["b_orders"] = all(got[n]["order"] == phase4[n]["order"]
+                          for n in phase4)
+    out["b_errors_rel"] = max(float(np.max(
+        np.abs(np.subtract(got[n]["errors"], phase4[n]["errors"]))
+        / np.maximum(np.abs(phase4[n]["errors"]), 1e-30))) for n in phase4)
+    out["b_exact"] = got == phase4
+    with install(FaultPlan.parse("db.sharded_group:raise@0")) as plan, \
+            report_scope() as rep:
+        db_c = timed("c", lambda: build_database(
+            cfg, params, clean, mesh=mesh, device="cuda"))
+    out["c_exact"] = _same_db(db_c, db, list(db))
+    out["c_counts"] = {b: d for b, d in rep.as_dict()["counts"].items() if d}
+    out["c_breaker"] = rep.breaker_open("db.sharded_group")
+    out["c_hits"] = plan.hits.get("db.sharded_group")
+    del db, db_c
+    res = timed("d", lambda: oneshot_prune(
+        cfg, params, calib, sharded_env(), MAIN_TARGETS,
+        eval_with_loss=False, mesh=mesh, device="cuda", **SHARDED_SEARCH))
+    out["d"] = family_of(res)
+    out["launches"] = {k.__name__: k.launches for k in kernels.KERNELS}
+    emit_result(out)
+
+
+def run_sharded_path(torch, cfg, params, calib, db):
+    """Phase 18: phase 4's model, calibration and database against two
+    ranks on the card (see the module docstring); returns each rank's
+    launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core.hessian import collect_hessians
+    from repro_torch.core.oneshot import oneshot_prune
+    from repro_torch.launch.subproc import run_ranks
+
+    seconds = {}
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        clean = collect_hessians(cfg, params, calib, device="cuda")
+        np.savez(os.path.join(work, "hessians.npz"),
+                 **{k: h.cpu().numpy() for k, h in clean.items()})
+        with open(os.path.join(work, "phase4_db.json"), "w") as f:
+            json.dump(db_digests(db), f)
+        checksum = weights_checksum(params, calib)
+        single = family_of(oneshot_prune(
+            cfg, params, calib, sharded_env(), MAIN_TARGETS,
+            eval_with_loss=False, device="cuda", **SHARDED_SEARCH))
+        torch.cuda.synchronize()
+        seconds["parent"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        script = f"ROOT = {ROOT!r}\nWORK = {work!r}\n" + SHARDED_SCRIPT
+        ranks = run_ranks(script, SHARDED_RANKS, device="cuda",
+                          timeout=SHARDED_TIMEOUT)
+        seconds["ranks"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"sharded: {SHARDED_RANKS} ranks on the card; seconds "
+          + json.dumps({k: round(v, 4) for k, v in seconds.items()}))
+    for r in ranks:
+        rank = r["rank"]
+        print(f"  rank {rank}: seconds " + json.dumps(
+            {k: round(v, 4) for k, v in r["seconds"].items()})
+            + f"; (a) Hessians rel err {r['a_rel']:.3e}; (b) orders equal "
+            f"{r['b_orders']}, errors max rel diff {r['b_errors_rel']:.3e}, "
+            f"bit for bit {r['b_exact']}; (c) {r['c_counts']}, breaker "
+            f"open {r['c_breaker']}, site hits {r['c_hits']}, equal to (b) "
+            f"{r['c_exact']}; (d) {r['d'] == single}")
+        check(r["checksum"] == checksum,
+              f"sharded rank {rank}: weights or tokens differ from phase 4's")
+        check(r["a_keys"] and r["a_rel"] < 1e-5,
+              f"sharded (a) rank {rank}: Hessians {r['a_rel']:.3e} from the "
+              "single-process ones")
+        check(r["b_exact"], f"sharded (b) rank {rank}: the database differs "
+              "from phase 4's")
+        check(r["c_exact"] and r["c_breaker"] and r["c_hits"] == 1
+              and r["c_counts"] == {"injected": {"db.sharded_group": 1},
+                                    "demotions": {"db.sharded_group": 1}},
+              f"sharded (c) rank {rank}: the demotion went wrong")
+        check(r["d"] == single, f"sharded (d) rank {rank}: {r['d']} against "
+              f"the single-process {single}")
+    for t, (assignment, speedup) in single.items():
+        print(f"  (d) {t}x: speedup {speedup:.4f}x, structures removed "
+              f"{sum(assignment.values())}")
+    launches = [{k: r["launches"][k] for k in SHARDED_KERNELS} for r in ranks]
+    print("sharded_launches: " + json.dumps(launches))
+    for rank, got in enumerate(launches):
+        for name, n in got.items():
+            check(n > 0, f"sharded rank {rank}: {name} never launched")
+    return [r["launches"] for r in ranks]
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -4563,6 +4769,11 @@ def main() -> int:
     launches, cfg, params, calib, db, table, fam = run_main_path(torch,
                                                                  kernels)
     print(f"phase 4: main path done ({time.perf_counter() - t0:.2f} s)")
+
+    t0 = time.perf_counter()
+    sharded_launches = run_sharded_path(torch, cfg, params, calib, db)
+    print(f"phase 18: sharded calibration and database done "
+          f"({time.perf_counter() - t0:.2f} s)")
 
     t0 = time.perf_counter()
     run_search_paths(torch, cfg, params, calib, db, table)
@@ -4671,6 +4882,7 @@ def main() -> int:
         rec["vlm_launches"] = vlm_launches[name]
         rec["compact_launches"] = compact_launches[name]
         rec["chaos_launches"] = chaos_launches[name]
+        rec["sharded_launches"] = [r[name] for r in sharded_launches]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     # flash attention's and the SSD passes' device-only times ride beside
@@ -4681,13 +4893,13 @@ def main() -> int:
     # runs A (phases 9 and 10), the MoE family run (phase 11), the Hymba
     # path (phase 13), the Whisper path (phase 14), the VLM path (phase
     # 15) and the compacted databases (phase 16) beside those on its own
-    # path (phases 4-6; the SSD backward's own path is phase 10), and the
-    # robustness phase's (17)
+    # path (phases 4-6; the SSD backward's own path is phase 10), the
+    # robustness phase's (17) and each rank's of the sharded phase (18)
     extra = ["note", "device_ms", "library_device_ms", "passes_ms",
              "other_shapes", "moe_launches", "train_launches",
              "family_launches", "ssm_family_launches", "moe_family_launches",
              "hybrid_launches", "encdec_launches", "vlm_launches",
-             "compact_launches", "chaos_launches"]
+             "compact_launches", "chaos_launches", "sharded_launches"]
     check_reports()
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in records.values()]}))

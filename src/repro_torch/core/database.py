@@ -11,12 +11,20 @@ keeps the serial per-module path as the equivalence reference.
 (``obs.prune_structured[_batched]_compact``): the same removal orders,
 snapshots in the same layout, a downdate that shrinks with the live set.
 
+``mesh`` shards each chunk over the ranks of its ``shard_axes``
+(``obs.prune_structured_sharded``): each rank runs its block of lanes,
+the damping ladder climbs on all ranks together, and each rank fetches
+its block and all-gathers the others', so every rank holds the
+single-process database bit for bit. The ``db.sharded_group`` fault site
+demotes a chunk to the single-process build on every rank.
+
 ``SnapshotCache`` keeps the stacked snapshots on the device so SPDY's
 per-candidate stitch is one gather + scatter per module kind; a per-expert
 kind (MoE) writes ``leaf[layer, expert]``.
 """
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -24,14 +32,17 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..distributed.sharding import axis_size, data_axes_for
 from ..robustness import faults
 from ..robustness.healing import damp_schedule
 from ..robustness.report import current_report
 from ..runtime.device import (DeviceLike, resolve_device, synchronize,
                               to_host)
-from .obs import (build_hessian, module_drop_error, module_drop_errors,
-                  prune_structured, prune_structured_batched,
-                  prune_structured_batched_compact, prune_structured_compact)
+from .obs import (build_hessian, gather_lanes, module_drop_error,
+                  module_drop_errors, prune_structured,
+                  prune_structured_batched, prune_structured_batched_compact,
+                  prune_structured_compact, prune_structured_sharded,
+                  shard_lanes)
 from .structures import (UNITS, PrunableModule, copy_tree, get_matrix,
                          level_grid, registry, set_matrix)
 
@@ -98,9 +109,18 @@ def _non_finite_report(names, levels, errs, snap_ok) -> List[str]:
 
 
 def _prune_healed(prune_fn, Ws, Hraw, *, group_size, n_remove, levels,
-                  damp, names):
+                  damp, names, shard=None):
     """Run Algorithm 1, climbing the damping ladder while the result is
     non-finite; returns host arrays ``(snaps16, errs, orders)``.
+
+    ``shard``, a (mesh, axes) pair, makes ``prune_fn`` the sharded prune:
+    every rank inverts the whole chunk's Hessians, as the single-process
+    build does (on the card a lane's fp64 inverse takes other bits in a
+    batch of another size), and prunes its block; each rank checks its
+    own block, a rung fails on every rank if it fails on any (one
+    all-reduce a rung, so the ranks climb together as the single-process
+    build re-runs its finite lanes with the others), and the fetched
+    blocks are all-gathered.
 
     Rung 0 is the caller's damp, so a run that never escalates is the
     un-healed computation; the snapshots are checked on their device and
@@ -111,6 +131,12 @@ def _prune_healed(prune_fn, Ws, Hraw, *, group_size, n_remove, levels,
     """
     rep = current_report()
     rungs = damp_schedule(damp)
+    n = len(names)
+    if shard is not None:  # the names of this rank's block
+        mesh, axes = shard
+        pad = (-n) % axis_size(mesh, axes)
+        names = (list(names) + [names[0]] * pad)[
+            shard_lanes(mesh, axes, n)]
     for attempt, rung in enumerate(rungs):
         Hinv = faults.poison_array(
             "obs.cholesky", _inverse_or_nan(build_hessian(Hraw, rung)))
@@ -119,7 +145,8 @@ def _prune_healed(prune_fn, Ws, Hraw, *, group_size, n_remove, levels,
         errs = res.errors.cpu().numpy()
         snap_ok = _finite_snapshots(res.snapshots, len(names), len(levels))
         bad = _non_finite_report(names, levels, errs, snap_ok)
-        if not bad:
+        failed = bool(bad) if shard is None else mesh.any(bool(bad), axes)
+        if not failed:
             if attempt:
                 rep.count("recovered", "obs.cholesky")
                 print(f"[robustness] obs: healed non-finite prune at "
@@ -130,11 +157,14 @@ def _prune_healed(prune_fn, Ws, Hraw, *, group_size, n_remove, levels,
             snaps16 = to_host(res.snapshots)
             SNAPSHOT_TRAFFIC["fetch_s"] += time.perf_counter() - t0
             SNAPSHOT_TRAFFIC["fetch_bytes"] += snaps16.nbytes
-            return snaps16, errs, res.order.cpu().numpy()
+            out = snaps16, errs, res.order.cpu().numpy()
+            return out if shard is None else gather_lanes(mesh, axes, n,
+                                                          *out)
         rep.count("detected", "obs.cholesky")
         rep.count("retries", "obs.cholesky")
         print(f"[robustness] obs: non-finite prune at damp={rung:g} in "
-              f"{len(bad)} of {len(names)} module(s): " + "; ".join(bad))
+              f"{len(bad)} of {len(names)} module(s)"
+              + (": " + "; ".join(bad) if bad else " here, on another rank"))
     raise FloatingPointError(
         f"OBS prune stayed non-finite through the damping ladder {rungs} "
         "— calibration Hessian is unusable")
@@ -204,10 +234,26 @@ def group_modules(cfg, params, mods: List[PrunableModule]
     return list(groups.items())
 
 
+def _shard_or_demote(rep, mesh, axes):
+    """The ``db.sharded_group`` site, hit once a chunk: (mesh, axes) to
+    shard the chunk, or None (the breaker tripped) when a fault injected
+    at the site fired on any rank."""
+    why = "a fault injected on another rank"
+    try:
+        faults.hit("db.sharded_group")
+        fired = False
+    except faults.INJECTED as e:
+        fired, why = True, repr(e)
+    if mesh.any(fired, axes):
+        rep.trip("db.sharded_group", reason=f"sharded db chunk: {why}")
+        return None
+    return mesh, axes
+
+
 def build_database(cfg, params, hessians: Dict[str, torch.Tensor], *,
                    damp: float = 1e-4, verbose: bool = False,
                    batched: bool = True, compact: bool = False,
-                   max_batch: int = 16,
+                   max_batch: int = 16, mesh=None, shard_axes=None,
                    device: DeviceLike = None) -> Dict[str, ModuleDB]:
     """The database of every registry module, built on ``device``
     (``params`` must live there; Hessians are moved to it).
@@ -217,10 +263,24 @@ def build_database(cfg, params, hessians: Dict[str, torch.Tensor], *,
     ``compact=True`` routes Algorithm 1 through the live-set-compacted
     cores: the same orders, the snapshots scattered back to the original
     rows before ``_finish_module_db``.
+
+    ``mesh`` (with more than one shard over ``shard_axes``, by default
+    the mesh's data axes) shards each chunk over the ranks; every rank
+    returns the single-process database bit for bit. A fault injected at
+    ``db.sharded_group`` (hit once a chunk) demotes that chunk, and every
+    later one under the ambient report, to the single-process build on
+    every rank: the ranks share the decision (one all-reduce) before the
+    chunk's first collective, and the breaker trips once a report. Any
+    other error raises: unlike the reference, which demotes on every
+    exception.
     """
     dev = resolve_device(device)
     mods = registry(cfg)
     db: Dict[str, ModuleDB] = {}
+    rep = current_report()
+    if mesh is not None and shard_axes is None:
+        shard_axes = data_axes_for(mesh)
+    n_shards = axis_size(mesh, shard_axes) if mesh is not None else 1
     with torch.no_grad():
         if not batched:
             for mod in mods:
@@ -238,10 +298,18 @@ def build_database(cfg, params, hessians: Dict[str, torch.Tensor], *,
                                       for m in chunk]).to(dev)
                     Hraw = torch.stack([hessians[m.name].float()
                                         for m in chunk]).to(dev)
+                    shard = None
+                    if n_shards > 1 and not rep.breaker_open(
+                            "db.sharded_group"):
+                        shard = _shard_or_demote(rep, mesh, shard_axes)
+                    prune = prune_batched if shard is None else \
+                        functools.partial(prune_structured_sharded,
+                                          mesh=mesh, axes=shard_axes,
+                                          compact=compact)
                     snaps16, errs, orders = _prune_healed(
-                        prune_batched, Ws, Hraw, group_size=gs,
+                        prune, Ws, Hraw, group_size=gs,
                         n_remove=max(levels), levels=levels, damp=damp,
-                        names=[m.name for m in chunk])
+                        names=[m.name for m in chunk], shard=shard)
                     # sync: one transfer per chunk
                     bases = module_drop_errors(Ws, Hraw).double().cpu().numpy()
                     lv = np.asarray(levels)

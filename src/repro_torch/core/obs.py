@@ -29,6 +29,13 @@ carried compact-slot -> original-structure map (``PruneResult.perm``)
 records the removal orders and scatters each level's snapshot back to
 its original rows, so the result has the plain path's layout; the
 per-step arithmetic is the plain path's (``_select_and_downdate``).
+
+``prune_structured_sharded`` splits a stack over the ranks of a mesh:
+the stack is padded to a multiple of the shard count with replicas of
+module 0, and each rank runs its block of lanes through the same core.
+Lanes never interact, so the blocks are bit for bit the lanes of the
+single-process run; ``gather_lanes`` puts the blocks' host arrays
+together on every rank.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..distributed.sharding import axis_size, pad_leading
 from ..kernels import obs_downdate
 
 
@@ -119,15 +127,22 @@ def _select_and_downdate(W, Hinv, removed, *, gs: int,
         Lc = _cholesky_or_nan(safe)                             # (M,n,gs,gs)
         Wb = W.reshape(M, n, gs, d_out)
         V = torch.linalg.solve_triangular(Lc, Wb, upper=False)  # L^-1 W_S
-        scores = (V * V).sum((2, 3))
+        # the score sum and the two solves run module by module: on the
+        # card their batched forms round a module differently in stacks
+        # of other sizes (scripts/diag_torch_lane_bits.py), and a sharded
+        # database runs each rank's part of the stack
+        scores = torch.stack([(v * v).sum((1, 2)) for v in V])  # (M, n)
         scores = torch.where(removed, float("inf"), scores.clamp_min(0.0))
         s = scores.argmin(-1)
         idx = s[:, None] * gs + torch.arange(gs, device=W.device)  # (M, gs)
         HcolS = torch.gather(Hinv, 2, idx[:, None, :].expand(M, d_in, gs))
         WS = torch.gather(W, 1, idx[:, :, None].expand(M, gs, d_out))
-        Ls = Lc[rows, s]                                        # (M, gs, gs)
-        KsWS = torch.cholesky_solve(WS, Ls)                     # (M, gs, d_out)
-        KsHcolT = torch.cholesky_solve(HcolS.transpose(1, 2).contiguous(), Ls)
+        Ls = Lc[rows, s].split(1)                               # M x (1,gs,gs)
+        KsWS = torch.cat([torch.cholesky_solve(b, l)            # (M, gs, d_out)
+                          for b, l in zip(WS.split(1), Ls)])
+        KsHcolT = torch.cat([
+            torch.cholesky_solve(b, l) for b, l in
+            zip(HcolS.transpose(1, 2).contiguous().split(1), Ls)])
     err = scores[rows, s]
     removed[rows, s] = True
     # paper: explicitly re-apply the overall mask — fp downdate creep
@@ -328,6 +343,40 @@ def prune_structured_compact(W: torch.Tensor, Hinv: torch.Tensor, *,
         W[None], Hinv[None], group_size=group_size, n_remove=n_remove,
         levels=levels, ratio=ratio, min_rows=min_rows, pad_rows=pad_rows)
     return PruneResult(*(t[0] for t in res))
+
+
+def shard_lanes(mesh, axes, n: int) -> slice:
+    """This rank's block of an ``n``-module stack padded
+    (``pad_leading``) to a multiple of the shard count over ``axes``."""
+    per = -(-n // axis_size(mesh, axes))
+    i = mesh.index(axes)
+    return slice(i * per, (i + 1) * per)
+
+
+def prune_structured_sharded(W: torch.Tensor, Hinv: torch.Tensor, *, mesh,
+                             axes, group_size: int, n_remove: int,
+                             levels: Sequence[int], compact: bool = False
+                             ) -> PruneResult:
+    """Device-parallel twin of ``prune_structured_batched[_compact]``
+    over the ranks of ``mesh``'s ``axes``: the stack is padded with
+    replicas of module 0 and this rank runs its block
+    (:func:`shard_lanes`) through the same core. Returns the block's
+    result, on this rank's device: the caller checks and fetches it, and
+    :func:`gather_lanes` puts the fetched blocks together."""
+    blk = shard_lanes(mesh, axes, W.shape[0])
+    k = axis_size(mesh, axes)
+    prune = (prune_structured_batched_compact if compact
+             else prune_structured_batched)
+    return prune(pad_leading(W, k)[blk], pad_leading(Hinv, k)[blk],
+                 group_size=group_size, n_remove=n_remove, levels=levels)
+
+
+def gather_lanes(mesh, axes, n: int, *blocks: np.ndarray
+                 ) -> Tuple[np.ndarray, ...]:
+    """Every rank's host block of each array (from
+    :func:`prune_structured_sharded`), concatenated in shard order and
+    sliced back to the ``n`` modules: the same bits on every rank."""
+    return tuple(mesh.all_gather(b, axes)[:n] for b in blocks)
 
 
 def module_drop_error(W: torch.Tensor, H: torch.Tensor) -> torch.Tensor:

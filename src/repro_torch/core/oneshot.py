@@ -26,7 +26,7 @@ from ..runtime.costmodel import InferenceEnv
 from ..runtime.device import DeviceLike, resolve_device, synchronize
 from .database import (ModuleDB, SnapshotCache, apply_assignment,
                        build_database)
-from .hessian import collect_hessians
+from .hessian import collect_hessians, resolve_mesh
 from .latency import LatencyTable, build_table
 from .spdy import SearchResult, search_family
 from .structures import registry
@@ -102,6 +102,7 @@ def oneshot_prune(cfg, params, calib_batches: List[dict],
                   eval_batches: Optional[List[dict]] = None,
                   damp: float = 1e-4, seed: int = 0, verbose: bool = False,
                   hessians: Optional[Dict[str, torch.Tensor]] = None,
+                  mesh=None, data_axes=None,
                   device: DeviceLike = None) -> OneShotResult:
     """One-shot family pruning on ``device`` (params are moved there).
 
@@ -115,8 +116,17 @@ def oneshot_prune(cfg, params, calib_batches: List[dict],
     ``collect_hessians`` result of these params and batches (say, from a
     run of the other MoE prune mode, whose modules and captures are the
     same), replaces the calibration stage.
+
+    ``mesh``/``data_axes`` (or the installed activation context) shard
+    the calibration and the database over the ranks of the mesh. The
+    latency table is built on the mesh's first rank and broadcast (a
+    measured table differs from build to build), and every rank runs the
+    unplaced search on the same inputs, so every rank returns the
+    single-process result. The reference also places the search's
+    populations on the mesh's devices; that is ROADMAP Queue 1 item 6b.
     """
     dev = resolve_device(device)
+    mesh, data_axes = resolve_mesh(mesh, data_axes)
     params = tree_to(params, dev)
     targets = list(targets)
     stages: Dict[str, float] = {}
@@ -134,13 +144,19 @@ def oneshot_prune(cfg, params, calib_batches: List[dict],
     if hessians is None:
         with stage("calibration"):
             hessians = collect_hessians(cfg, params, calib_batches,
+                                        mesh=mesh, data_axes=data_axes,
                                         device=dev)
     with stage("latency_table"):
-        table = build_table(cfg, env, backend=latency_backend, device=dev,
-                            **(latency_kw or {}))
+        table = None
+        if mesh is None or mesh.index() == 0:
+            table = build_table(cfg, env, backend=latency_backend,
+                                device=dev, **(latency_kw or {}))
+        if mesh is not None:
+            table = mesh.broadcast_object(table)
     with stage("database"):
         db = build_database(cfg, params, hessians, damp=damp,
-                            verbose=verbose, device=dev)
+                            verbose=verbose, mesh=mesh,
+                            shard_axes=data_axes, device=dev)
         del hessians
     with stage("search"):
         cache = SnapshotCache(cfg, db, device=dev) if eval_with_loss else None

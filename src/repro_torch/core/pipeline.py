@@ -111,7 +111,8 @@ and the ``corrupt`` mode flips bytes after the write, so the sha256 in
 the manifest catches the file on its next load and the stage runs again.
 
 Not ported yet: the mesh arguments (``mesh``, ``data_axes``, ``mc``,
-``specs``; ROADMAP Queue 1 item 6), which raise ``NotImplementedError``.
+``specs``), which need the mesh trainer (ROADMAP Queue 1 item 6c) and
+raise ``NotImplementedError``.
 
 One deliberate difference from the JAX package: a variant's ``pruned``
 model is shrunk from its finetuned params (``shrink_from_stitched``). The
@@ -529,9 +530,9 @@ def gradual_prune(cfg, params, env, targets: Sequence[float],
     dev = resolve_device(device)
     if any(a is not None for a in (mesh, data_axes, mc, specs)):
         raise NotImplementedError(
-            "gradual_prune(mesh=, data_axes=, mc=, specs=): the sharded "
-            "calibration and mesh trainer are not ported yet (ROADMAP "
-            "Queue 1 item 6)")
+            "gradual_prune(mesh=, data_axes=, mc=, specs=): the mesh "
+            "trainer and the family engine's writes from several ranks are "
+            "not ported yet (ROADMAP Queue 1 item 6c)")
     tcfg = tcfg or gradual_train_config(finetune_steps)
     if stop_after is not None:
         if stop_after[1] not in ("hessians", "db", "search", "finetune"):

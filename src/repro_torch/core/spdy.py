@@ -391,7 +391,7 @@ def search(db: Dict[str, ModuleDB], table: LatencyTable,
     if devices is not None and len(devices) > 1:
         raise NotImplementedError(
             "search(devices=[...]) over more than one device: placed SPDY "
-            "populations are not ported yet (ROADMAP Queue 1 item 6)")
+            "populations are not ported yet (ROADMAP Queue 1 item 6b)")
     return search_family(
         db, table, [target_speedup], steps=steps, pop=pop,
         mutate_frac=mutate_frac, nbins=nbins, eval_fn=eval_fn,

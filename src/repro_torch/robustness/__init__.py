@@ -26,10 +26,9 @@ means the same in both packages)
                         (``core.oneshot.make_batched_eval``)
 ``serve.step``          raise / NaN logits in a serving decode step
                         (``serve.engine``)
+``db.sharded_group``    raise at a chunk of the sharded database build
+                        (``core.database.build_database(mesh=...)``)
 ======================  =================================================
-
-``db.sharded_group`` comes with the device-sharded database build
-(ROADMAP Queue 1 item 6); naming it raises.
 
 Configure a plan in code (``with install(FaultPlan.parse(
 "obs.cholesky:nan@0")): ...``) or from the environment::
@@ -53,14 +52,19 @@ Healing and degradation
 * measured-latency failure -> the ``latency.measure`` breaker opens, the
   cache entry is quarantined and the cost model prices the table;
 * batched SPDY scoring failure -> the ``spdy.batched_eval`` breaker
-  opens and the search scores serially (same memo, same acceptances).
+  opens and the search scores serially (same memo, same acceptances);
+* sharded database chunk failure -> the ``db.sharded_group`` breaker
+  opens and the chunk, and every later one, is built single-process on
+  every rank (bit for bit the sharded result).
 
 Where the port differs from the JAX package: an injected
 ``kernel.pallas`` failure raises out of the wrapper (no breaker, no
 fall-back to the plain version, the launch counter unchanged), and only
 a fault injected at the rung's own site or ``torch.cuda.OutOfMemoryError``
 demotes ``latency.measure`` or ``spdy.batched_eval``
-(``healing.demotable``): any other error raises, a ``kernel.pallas``
+(``healing.demotable``), and only a fault injected at
+``db.sharded_group`` demotes a sharded database chunk: any other error
+raises, a ``kernel.pallas``
 fault inside the scored or timed forward included, so a failed
 CUDA-graph capture or kernel is never hidden behind the cost model or
 the serial search. An env without a ``HardwareSpec`` has no

@@ -25,9 +25,7 @@ retry paths are the ones exercised); ``delay`` sleeps; ``nan``/``inf``/
 ``corrupt`` return the fired rule for the site to act on (a poison
 scalar, byte flips).
 
-The sites are the JAX package's less ``db.sharded_group``, which comes
-with the device-sharded database build (ROADMAP Queue 1 item 6).
-``kernel.pallas`` keeps its name so that spec strings carry across; in
+The sites are the JAX package's. ``kernel.pallas`` keeps its name so that spec strings carry across; in
 the port it marks the dispatch of a CUDA kernel's wrapper.
 """
 from __future__ import annotations
@@ -45,17 +43,11 @@ from .report import current_report
 
 SITES = ("calib.batch", "obs.cholesky", "db.artifact_write",
          "ckpt.async_write", "latency.measure", "kernel.pallas",
-         "spdy.batched_eval", "serve.step")
+         "spdy.batched_eval", "serve.step", "db.sharded_group")
 MODES = ("raise", "oserror", "nan", "inf", "corrupt", "delay")
-# sites of the JAX package that the port has not reached yet
-NOT_PORTED = {"db.sharded_group": "the device-sharded database build "
-                                  "comes with ROADMAP Queue 1 item 6"}
 
 
 def _check_site(site: str) -> None:
-    if site in NOT_PORTED:
-        raise ValueError(f"fault site {site!r} is not in the port: "
-                         f"{NOT_PORTED[site]}")
     if site not in SITES:
         raise ValueError(f"unknown fault site {site!r}; sites: {SITES}")
 

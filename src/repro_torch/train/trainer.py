@@ -70,7 +70,7 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(
                 "Trainer(mesh=...): the port's mesh trainer (FSDP shardings, "
-                "int8_ef) is not ported yet (ROADMAP Queue 1 item 6)")
+                "int8_ef) is not ported yet (ROADMAP Queue 1 item 6c)")
         self.cfg = cfg
         self.tcfg = tcfg
         if step_fn is None:

@@ -30,7 +30,16 @@ open: logits card against CPU 1e-4 of their scale, greedy tokens through
 the cross cache equal. Under fault plans: an injected ``kernel.pallas``
 failure raises out of each wrapper on CUDA tensors before it launches,
 and decode steps recomputed after a failure give the clean tokens.
+Two ranks on the card (gloo groups through ``launch.subproc.run_ranks``):
+sharded Hessians within 1e-5 of max |H| of the single-process ones, and
+a sharded database fed the single-process Hessians bit for bit the
+single-process build (at this width each rank runs one lane of two: the
+Algorithm-1 step runs its score sum and solves module by module, since
+their batched forms round a lane by the stack's size on the card;
+``scripts/diag_torch_lane_bits.py``), on every rank, both kernels
+launched on each.
 """
+import itertools
 import json
 import os
 import warnings
@@ -52,6 +61,7 @@ from repro_torch.core.pipeline import (FamilyPreempted, family_run_dir,
 from repro_torch.data import (calibration_batches, make_batch_np,
                               synthetic_stream)
 from repro_torch.launch import train as train_cli
+from repro_torch.launch.subproc import run_ranks
 from repro_torch.kernels import (flash_attention, flash_attention_plain,
                                  hessian_accum, hessian_accum_plain,
                                  obs_downdate, obs_downdate_plain,
@@ -1133,7 +1143,10 @@ def test_recomputed_decode_steps_on_the_card_give_the_clean_tokens(
                               prompt_lens=(5, 9, 13), steps_range=(3, 8))
 
     def serve():
-        eng = ServeEngine(DenseServeModel(cfg, params, 64), num_slots=2)
+        # a scripted clock (1 ms a read): on the wall clock the retried
+        # steps take longer and the arrivals join at other steps
+        eng = ServeEngine(DenseServeModel(cfg, params, 64), num_slots=2,
+                          clock=itertools.count(0.0, 1e-3).__next__)
         return [r.tokens for r in eng.run(reqs).records], eng.cache
 
     want, clean_cache = serve()
@@ -1145,3 +1158,57 @@ def test_recomputed_decode_steps_on_the_card_give_the_clean_tokens(
     assert all(torch.equal(clean_cache["attn"][k], cache["attn"][k])
                for k in ("k", "v"))
     assert torch.equal(clean_cache["pos"], cache["pos"])
+
+
+# each rank: a small GPT-2, its Hessians single-process and over a 2-rank
+# mesh, and the database of the single-process Hessians both ways
+SHARDED_CARD_SCRIPT = r"""
+import hashlib
+
+import numpy as np
+import torch
+
+from repro_torch import kernels
+from repro_torch.configs import GPT2_SMALL
+from repro_torch.core.database import build_database
+from repro_torch.core.hessian import collect_hessians
+from repro_torch.data import calibration_batches
+from repro_torch.distributed import make_mesh
+from repro_torch.launch.subproc import emit_result, init_rank
+from repro_torch.models import model_init
+
+rank, world, dev = init_rank(timeout=300)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+cfg = GPT2_SMALL.replace(num_layers=2, d_model=128, d_ff=512, num_heads=4,
+                         num_kv_heads=4, head_dim=32, vocab_size=512)
+params = model_init(cfg, torch.Generator().manual_seed(0), device=dev)
+calib = calibration_batches(cfg, 16, 128, batch=8)
+mesh = make_mesh((world,), ("data",))
+one = collect_hessians(cfg, params, calib, device=dev)
+kernels.reset_launch_counts()
+sharded = collect_hessians(cfg, params, calib, mesh=mesh, device=dev)
+db = build_database(cfg, params, one, mesh=mesh, device=dev)
+launches = {k.__name__: k.launches for k in kernels.KERNELS}
+ref = build_database(cfg, params, one, device=dev)
+emit_result({
+    "rel": max(float((sharded[k] - one[k]).abs().max() / one[k].abs().max())
+               for k in one),
+    "same": all(np.array_equal(getattr(db[k], f), getattr(ref[k], f))
+                for k in ref for f in ("order", "errors", "snapshots")),
+    "digest": hashlib.sha256(b"".join(
+        db[k].snapshots.tobytes() + db[k].errors.tobytes() for k in db)
+    ).hexdigest(),
+    "launches": launches})
+"""
+
+
+@pytest.mark.cuda
+def test_sharded_calibration_and_database_on_the_card(cuda_device):
+    ranks = run_ranks(SHARDED_CARD_SCRIPT, 2, device="cuda", timeout=600)
+    for r in ranks:
+        assert r["rel"] < 1e-5, r["rel"]
+        assert r["same"]
+        assert r["launches"]["hessian_accum"] > 0
+        assert r["launches"]["obs_downdate"] > 0
+    assert ranks[0]["digest"] == ranks[1]["digest"]

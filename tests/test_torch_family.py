@@ -559,12 +559,12 @@ def test_tree_digest_is_stable_and_sees_one_element():
 
 
 def test_arguments_not_ported_raise(run, tmp_path):
-    """The mesh arguments (ROADMAP Queue 1 item 6) raise before the run
-    writes anything. The serial search and the latency cache (item 4)
+    """The mesh arguments raise before the run writes anything: the mesh
+    trainer is ROADMAP Queue 1 item 6c. The serial search and the latency cache (item 4)
     are ported: each runs through its first search (on the cost-model
     table, which is never cached)."""
     for kw in ({"mesh": object()}, {"specs": {}}):
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(NotImplementedError, match="item 6c"):
             run(tmp_path, **kw)
     assert not any(tmp_path.iterdir())
     cache = tmp_path / "cache"
@@ -581,7 +581,7 @@ def test_search_arguments_not_ported_raise(ref_family, cfg):
     gives the batched path's result."""
     db = _load_db(cfg, os.path.join(ref_family[0], "t1.5", "db.npz"))
     table = build_table(cfg, ENV, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 6b"):
         spdy.search(db, table, 1.5, steps=4, pop=4, devices=["a", "b"])
     one = spdy.search(db, table, 1.5, steps=8, pop=4, seed=5)
     fam = spdy.search_family(db, table, [1.5], steps=8, pop=4, seed=5)[1.5]

@@ -31,8 +31,9 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + sorted((ROOT / "scripts").glob("*torch*.py")) + EXAMPLES
 
 
-def _imported_modules(path: pathlib.Path):
-    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+def _imported_modules(path: pathlib.Path, source: str = None):
+    source = path.read_text() if source is None else source
+    for node in ast.walk(ast.parse(source, str(path))):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -45,6 +46,43 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def _rank_scripts():
+    """The ``*_SCRIPT`` string constants that the launcher runs as ranks,
+    by ``file:name``."""
+    for path in RANK_SCRIPT_FILES:
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, ast.Assign) and isinstance(
+                    node.value, ast.Constant) and isinstance(
+                    node.value.value, str):
+                for t in node.targets:
+                    if isinstance(t, ast.Name) and t.id.endswith("_SCRIPT"):
+                        yield f"{path.name}:{t.id}", (path, node.value.value)
+
+
+RANK_SCRIPT_FILES = [ROOT / "chip_smoke.py",
+                     ROOT / "tests" / "test_torch_sharded.py",
+                     ROOT / "tests" / "test_torch_cuda.py"]
+RANK_SCRIPTS = dict(_rank_scripts())
+
+
+@pytest.mark.parametrize("name", sorted(RANK_SCRIPTS))
+def test_rank_scripts_import_neither_jax_nor_the_jax_package(name):
+    path, source = RANK_SCRIPTS[name]
+    bad = [m for m in _imported_modules(path, source)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{name} imports {bad}"
+
+
+def test_rank_scripts_are_found():
+    assert {"chip_smoke.py:SHARDED_SCRIPT",
+            "test_torch_cuda.py:SHARDED_CARD_SCRIPT",
+            "test_torch_sharded.py:PRELUDE_SCRIPT",
+            "test_torch_sharded.py:CALIB_SCRIPT",
+            "test_torch_sharded.py:DB_SCRIPT",
+            "test_torch_sharded.py:MESH_SCRIPT",
+            "test_torch_sharded.py:HANG_SCRIPT"} <= set(RANK_SCRIPTS)
 
 
 def test_port_files_are_found():
@@ -60,7 +98,8 @@ def test_port_files_are_found():
             "report.py", "torch_quickstart.py", "torch_serve_pruned.py",
             "torch_gradual_pruning.py", "torch_oneshot_prune_arch.py",
             "whisper_large_v3.py", "hymba_1p5b.py",
-            "llama32_vision_11b.py"} <= names
+            "llama32_vision_11b.py", "subproc.py", "sharding.py",
+            "activation.py"} <= names
 
 
 def _example_main(path: pathlib.Path):

@@ -395,7 +395,7 @@ def test_eval_step_is_the_loss_without_grad(ref_pair):
 
 
 def test_trainer_refuses_a_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 6c"):
         Trainer(CFG, TrainConfig(), ckpt_dir=str(tmp_path), mesh=object(),
                 device="cpu")
 
