@@ -243,7 +243,11 @@ Phases (any failure exits non-zero and prints no result):
    (``search_family(batched=False)``) against the batched one for
    phase 4's targets, bit for bit on the analytic score and within 1e-6
    relative scored by the calibration loss (serial ``eval_fn`` against
-   batched ``eval_batched``); phase 4's measured table built through the
+   batched ``eval_batched``), and the loss-scored search placed over
+   ``["cuda:0", "cuda:0"]`` (a stream a list position, a thread a
+   target's partition) bit for bit the batched one (assignments, scores,
+   histories, ``n_evals``), each search's seconds printed; phase 4's
+   measured table built through the
    persistent latency cache in a temporary directory and built again (a
    hit: no timed call, the same table bit for bit, a key that names the
    card, the search's assignments unchanged), each build's seconds
@@ -286,18 +290,26 @@ Phases (any failure exits non-zero and prints no result):
    its GPT-2 small, calibration batches and database): two ranks share
    the card through ``launch.subproc.run_ranks`` (gloo groups staged
    through host memory), each rebuilds phase 4's weights and tokens from
-   their seeds and shows the parent's checksum of them. (a)
+   their seeds and shows the parent's digests of them. (a)
    ``collect_hessians(mesh=...)`` within 1e-5 of max |H| of a clean
    single-process ``collect_hessians`` in the parent; (b)
    ``build_database(mesh=...)`` fed the parent's Hessians, phase 4's
    database bit for bit (orders, errors, snapshots); (c) (b) under
    ``db.sharded_group:raise@0``: the first chunk demoted on both ranks,
    the breaker tripped once, (b)'s database bit for bit; (d)
-   ``oneshot_prune(mesh=...)`` on the cost model priced with
-   ``H100_SXM``, scored by the analytic prior, phase 4's targets: the
-   parent's single-process call's assignments and speedups on both
-   ranks. Seconds per part and JSON ``sharded_launches`` (each rank's
-   launches of hessian_accum and obs_downdate, all above 0).
+   ``oneshot_prune(mesh=...)`` fed the parent's Hessians (as (b) is:
+   sharded Hessians are within 1e-5, not bit for bit, and a loss score
+   would see that), on the cost model priced with ``H100_SXM``, scored
+   by the calibration loss, phase 4's targets, its search placed over
+   the ranks (rank r scores the new candidates of the targets k with k
+   % 2 == r, one all-gather a round): the parent's single-process call's
+   assignments, speedups, scores, histories and ``n_evals`` on both
+   ranks, the ranks' scored candidates summing to ``n_evals``; (e) (d)
+   with ``spdy.batched_eval:raise@0`` installed on rank 0 only: both
+   ranks demote once in the first round (no all-gather), one injection
+   on rank 0, (d)'s family. Seconds per part, each rank's scored
+   candidates and all-gathers, and JSON ``sharded_launches`` (each
+   rank's launches of hessian_accum and obs_downdate, all above 0).
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 product on the
 card is a full fp32 product and the fp32 tolerances below hold. The train
@@ -1804,6 +1816,7 @@ def run_main_path(torch, kernels):
     t0 = time.perf_counter()
     cfg, params, calib = main_model(torch)
     setup_s = time.perf_counter() - t0
+    drawn = leaf_digests(params, calib)
     env = InferenceEnv(batch=16, seq=128, mode="prefill", hw=None)
     targets = MAIN_TARGETS
 
@@ -1855,6 +1868,11 @@ def run_main_path(torch, kernels):
           f"lower the calibration loss, so one member may win every target)")
     fam = check_prior_family(torch, cfg, params, calib, res, targets)
     check_table_spread(cfg, env, res)
+    # the weights and tokens that phases 5, 8, 9, 16-18 take must be the
+    # ones drawn (phase 18's ranks draw them again)
+    now = leaf_digests(params, calib)
+    check(now == drawn, "phase 4 changed its weights or tokens: "
+          + str(sorted(k for k in drawn if now.get(k) != drawn[k])))
     return launches, cfg, params, calib, res.db, res.table, fam
 
 
@@ -3903,6 +3921,8 @@ def run_vlm_path(torch, kernels):
 # and on the compacted route at M = 1. The schedule predicts the
 # compacted FFN run's Hinv traffic at 0.443 of the plain run's
 COMPACT_KERNELS = ("obs_downdate",)
+# (b)'s placed search: one card named twice, a stream a list position
+PLACED_DEVICES = ["cuda:0", "cuda:0"]
 # one float16 rounding of either side: |a - b| <= 2^-10 max(|a|, |b|),
 # plus float16's smallest subnormal
 F16_ULP = 2.0 ** -10
@@ -3915,7 +3935,10 @@ def run_search_paths(torch, cfg, params, calib, db, table):
     phase 4's database and measured table, for its targets: bit for bit
     on the analytic score, scores within 1e-6 relative when scored by the
     calibration loss (serial ``eval_fn`` against batched
-    ``eval_batched``)."""
+    ``eval_batched``); and the loss-scored search placed over
+    ``PLACED_DEVICES`` (two streams of the card) bit for bit the batched
+    one."""
+    from repro_torch.core import spdy
     from repro_torch.core.database import SnapshotCache
     from repro_torch.core.oneshot import calib_loss_fn, make_batched_eval
     from repro_torch.core.spdy import search_family
@@ -3945,6 +3968,24 @@ def run_search_paths(torch, cfg, params, calib, db, table):
     loss = calib_loss_fn(cfg, calib[:1], device="cuda")
     lb = timed("loss batched", eval_batched=make_batched_eval(
         cfg, params, cache, calib[:1], device="cuda"))
+    # placed on two streams of the card, one thread a target's partition
+    spdy.reset_placed_scoring()
+    lp = timed("loss placed", devices=PLACED_DEVICES,
+               eval_batched=make_batched_eval(cfg, params, cache, calib[:1],
+                                              device="cuda"))
+    placed = dict(spdy.PLACED_SCORING)
+    print(f"  placed over {PLACED_DEVICES}: {placed['calls']} scorer calls, "
+          f"candidates scored by target {placed['scored']}")
+    for t in MAIN_TARGETS:
+        b, p = lb[t], lp[t]
+        check(p.assignment == b.assignment and p.score == b.score
+              and p.history == b.history and p.runtime == b.runtime
+              and p.n_evals == b.n_evals,
+              f"placed search at {t}x is not the batched search bit for "
+              f"bit: score {p.score!r} against {b.score!r}")
+    check(sum(placed["scored"].values()) == lb[MAIN_TARGETS[0]].n_evals
+          and placed["calls"] > len(placed["scored"]),
+          f"the placed search did not place its rounds: {placed}")
     ls = timed("loss serial", batched=False,
                eval_fn=lambda a: loss(cache.apply(params, a)))
     for t in MAIN_TARGETS:
@@ -4541,13 +4582,23 @@ chip_smoke.sharded_rank(WORK)
 """
 
 
-def weights_checksum(params, calib) -> str:
-    """sha256 of every weight's bytes and every calibration token."""
+def leaf_digests(params, calib):
+    """sha256 of each weight (by its path) and of the tokens."""
     import hashlib
-    h = hashlib.sha256()
-    for t in _leaves(params) + [b["tokens"] for b in calib]:
-        h.update(t.detach().cpu().contiguous().numpy().tobytes())
-    return h.hexdigest()
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from walk(v, f"{path}/{k}")
+        else:
+            yield path, tree
+
+    out = {"tokens": hashlib.sha256(b"".join(
+        b["tokens"].numpy().tobytes() for b in calib)).hexdigest()}
+    for path, t in walk(params, ""):
+        out[path] = hashlib.sha256(
+            t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+    return out
 
 
 def db_digests(db):
@@ -4560,7 +4611,10 @@ def db_digests(db):
 
 
 def family_of(res):
-    return {str(t): [v.assignment, v.speedup]
+    """Per target: the assignment, speedup, search score, history and
+    ``n_evals``."""
+    return {str(t): [v.assignment, v.speedup, v.search.score,
+                     v.search.history, v.search.n_evals]
             for t, v in res.variants.items()}
 
 
@@ -4580,6 +4634,7 @@ def sharded_rank(work: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch import kernels
+    from repro_torch.core import spdy
     from repro_torch.core.database import build_database
     from repro_torch.core.hessian import collect_hessians
     from repro_torch.core.oneshot import oneshot_prune
@@ -4588,7 +4643,7 @@ def sharded_rank(work: str) -> None:
 
     t0 = time.perf_counter()
     cfg, params, calib = main_model(torch)
-    out = {"rank": rank, "checksum": weights_checksum(params, calib),
+    out = {"rank": rank, "leaves": leaf_digests(params, calib),
            "seconds": {}}
     mesh = make_mesh((world,), ("data",))
     with np.load(os.path.join(work, "hessians.npz")) as f:
@@ -4628,10 +4683,21 @@ def sharded_rank(work: str) -> None:
     out["c_breaker"] = rep.breaker_open("db.sharded_group")
     out["c_hits"] = plan.hits.get("db.sharded_group")
     del db, db_c
-    res = timed("d", lambda: oneshot_prune(
-        cfg, params, calib, sharded_env(), MAIN_TARGETS,
-        eval_with_loss=False, mesh=mesh, device="cuda", **SHARDED_SEARCH))
-    out["d"] = family_of(res)
+    # (d) the placed loss-scored search, (e) under a scorer fault on rank
+    # 0 only; both fed the parent's Hessians, as (b) is
+    for part, rule in (("d", None), ("e", "spdy.batched_eval:raise@0")):
+        plan = FaultPlan.parse(rule) if rule and rank == 0 else None
+        spdy.reset_placed_scoring()
+        with install(plan), report_scope() as rep:
+            res = timed(part, lambda: oneshot_prune(
+                cfg, params, calib, sharded_env(), MAIN_TARGETS, mesh=mesh,
+                hessians=clean, device="cuda", **SHARDED_SEARCH))
+        out[part] = family_of(res)
+        out[part + "_scoring"] = dict(spdy.PLACED_SCORING)
+        out[part + "_counts"] = {b: d for b, d in
+                                 rep.as_dict()["counts"].items() if d}
+        out[part + "_search_s"] = res.stage_seconds["search"]
+        del res
     out["launches"] = {k.__name__: k.launches for k in kernels.KERNELS}
     emit_result(out)
 
@@ -4657,10 +4723,11 @@ def run_sharded_path(torch, cfg, params, calib, db):
                  **{k: h.cpu().numpy() for k, h in clean.items()})
         with open(os.path.join(work, "phase4_db.json"), "w") as f:
             json.dump(db_digests(db), f)
-        checksum = weights_checksum(params, calib)
-        single = family_of(oneshot_prune(
-            cfg, params, calib, sharded_env(), MAIN_TARGETS,
-            eval_with_loss=False, device="cuda", **SHARDED_SEARCH))
+        leaves = leaf_digests(params, calib)
+        res = oneshot_prune(cfg, params, calib, sharded_env(), MAIN_TARGETS,
+                            hessians=clean, device="cuda", **SHARDED_SEARCH)
+        single, single_search_s = family_of(res), res.stage_seconds["search"]
+        del res
         torch.cuda.synchronize()
         seconds["parent"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -4670,8 +4737,11 @@ def run_sharded_path(torch, cfg, params, calib, db):
         seconds["ranks"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    n_evals = next(iter(single.values()))[4]
     print(f"sharded: {SHARDED_RANKS} ranks on the card; seconds "
-          + json.dumps({k: round(v, 4) for k, v in seconds.items()}))
+          + json.dumps({k: round(v, 4) for k, v in seconds.items()})
+          + f"; the parent's search {single_search_s:.4f} s, {n_evals} "
+          "candidates scored")
     for r in ranks:
         rank = r["rank"]
         print(f"  rank {rank}: seconds " + json.dumps(
@@ -4680,9 +4750,13 @@ def run_sharded_path(torch, cfg, params, calib, db):
             f"{r['b_orders']}, errors max rel diff {r['b_errors_rel']:.3e}, "
             f"bit for bit {r['b_exact']}; (c) {r['c_counts']}, breaker "
             f"open {r['c_breaker']}, site hits {r['c_hits']}, equal to (b) "
-            f"{r['c_exact']}; (d) {r['d'] == single}")
-        check(r["checksum"] == checksum,
-              f"sharded rank {rank}: weights or tokens differ from phase 4's")
+            f"{r['c_exact']}; (d) {r['d'] == single}, search "
+            f"{r['d_search_s']:.4f} s, placed scoring {r['d_scoring']}; (e) "
+            f"{r['e'] == single}, search {r['e_search_s']:.4f} s, "
+            f"{r['e_counts']}, placed scoring {r['e_scoring']}")
+        check(r["leaves"] == leaves, f"sharded rank {rank}: weights or "
+              "tokens differ from phase 4's: " + str(sorted(
+                  k for k in leaves if r["leaves"].get(k) != leaves[k])))
         check(r["a_keys"] and r["a_rel"] < 1e-5,
               f"sharded (a) rank {rank}: Hessians {r['a_rel']:.3e} from the "
               "single-process ones")
@@ -4692,11 +4766,27 @@ def run_sharded_path(torch, cfg, params, calib, db):
               and r["c_counts"] == {"injected": {"db.sharded_group": 1},
                                     "demotions": {"db.sharded_group": 1}},
               f"sharded (c) rank {rank}: the demotion went wrong")
-        check(r["d"] == single, f"sharded (d) rank {rank}: {r['d']} against "
-              f"the single-process {single}")
-    for t, (assignment, speedup) in single.items():
-        print(f"  (d) {t}x: speedup {speedup:.4f}x, structures removed "
-              f"{sum(assignment.values())}")
+        check(r["d"] == single and not r["d_counts"],
+              f"sharded (d) rank {rank}: the placed search differs from "
+              f"the single-process one ({r['d_counts']})")
+        own = [int(k) for k in r["d_scoring"]["scored"]]
+        check(all(k % SHARDED_RANKS == rank for k in own),
+              f"sharded (d) rank {rank} scored the targets {own}")
+        check(r["e"] == single and r["e_scoring"]["all_gathers"] == 0
+              and r["e_counts"] == {
+                  **({"injected": {"spdy.batched_eval": 1}} if rank == 0
+                     else {}),
+                  "demotions": {"spdy.batched_eval": 1}},
+              f"sharded (e) rank {rank}: the demotion went wrong "
+              f"({r['e_counts']}, {r['e_scoring']})")
+    scored = sum(n for r in ranks for n in r["d_scoring"]["scored"].values())
+    gathers = {r["d_scoring"]["all_gathers"] for r in ranks}
+    check(scored == n_evals and len(gathers) == 1 and min(gathers) >= 1,
+          f"sharded (d): the ranks scored {scored} of {n_evals} candidates "
+          f"with all-gathers {gathers}")
+    for t, (assignment, speedup, score, _, _) in single.items():
+        print(f"  (d) {t}x: speedup {speedup:.4f}x, score {score!r}, "
+              f"structures removed {sum(assignment.values())}")
     launches = [{k: r["launches"][k] for k in SHARDED_KERNELS} for r in ranks]
     print("sharded_launches: " + json.dumps(launches))
     for rank, got in enumerate(launches):

@@ -376,6 +376,15 @@ class SnapshotCache:
         SNAPSHOT_TRAFFIC["upload_bytes"] += out.numel() * out.element_size()
         return out
 
+    def to_device(self, device: DeviceLike) -> "SnapshotCache":
+        """This cache on ``device``: the snapshots and leaf indices copied
+        there (shared where they already are)."""
+        dev = resolve_device(device)
+        out = object.__new__(SnapshotCache)
+        out._groups = [{**e, "index": tuple(i.to(dev) for i in e["index"]),
+                        "snaps": e["snaps"].to(dev)} for e in self._groups]
+        return out
+
     def covers(self, assignment: Dict[str, int]) -> bool:
         return all(n in assignment for e in self._groups for n in e["names"])
 

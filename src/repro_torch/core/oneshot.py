@@ -7,10 +7,11 @@ speedup target, each with a runtime guarantee in the given environment.
 The family is searched in one pass (`spdy.search_family`); each round's
 unique candidates are stitched on the device (`SnapshotCache.apply`) and
 scored by a loop of calibration-loss forwards, with one host sync per
-round.
+round (per partition when the search is placed on devices or ranks).
 """
 from __future__ import annotations
 
+import threading
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
@@ -23,7 +24,8 @@ from ..models.model import loss_fn
 from ..models.transformer import tree_to
 from ..robustness import faults
 from ..runtime.costmodel import InferenceEnv
-from ..runtime.device import DeviceLike, resolve_device, synchronize
+from ..runtime.device import (DeviceLike, device_key, resolve_device,
+                              synchronize)
 from .database import (ModuleDB, SnapshotCache, apply_assignment,
                        build_database)
 from .hessian import collect_hessians, resolve_mesh
@@ -80,15 +82,51 @@ def make_batched_eval(cfg, params, cache: SnapshotCache, batches,
     on the device (`SnapshotCache.apply`) and score it with a
     calibration-loss forward; the losses stay on the device until the one
     host sync at the end of the call. Each call hits the
-    ``spdy.batched_eval`` fault site first."""
-    loss = calib_loss_fn(cfg, batches, device)
+    ``spdy.batched_eval`` fault site first.
 
-    def eval_batched(assignments: List[Dict[str, int]]) -> np.ndarray:
+    The scorer takes ``device=`` (its ``supports_device`` attribute says
+    so) for a placed search: the candidates are then stitched and scored
+    on that device, against a replica of the params, the snapshot cache
+    and the eval batches built there at first use and kept for the
+    scorer's life, one a distinct device (``eval_batched.replicas``;
+    tensors already there are shared). A CUDA replica is built on its
+    device's default stream, and a call on another stream waits for the
+    build's event. ``device=None`` scores on the caller's own params.
+    Each candidate is its own forward, so a score does not depend on
+    which candidates share the call."""
+    loss = calib_loss_fn(cfg, batches, device)
+    replicas: Dict[torch.device, tuple] = {}
+    lock = threading.Lock()
+
+    def replica(where):
+        if where is None:
+            return params, cache, loss, None
+        d = device_key(where)
+        with lock:  # one build a device, whichever thread asks first
+            if d not in replicas:
+                with torch.cuda.stream(torch.cuda.default_stream(d)
+                                       if d.type == "cuda" else None):
+                    built = (tree_to(params, d), cache.to_device(d),
+                             calib_loss_fn(cfg, batches, d))
+                    ready = None
+                    if d.type == "cuda":
+                        ready = torch.cuda.Event()
+                        ready.record()
+                replicas[d] = built + (ready,)
+        return replicas[d]
+
+    def eval_batched(assignments: List[Dict[str, int]],
+                     device: DeviceLike = None) -> np.ndarray:
         faults.hit("spdy.batched_eval")
-        vals = [loss.tensor(cache.apply(params, a)) for a in assignments]
-        # sync: the one host pull per SPDY round
+        p, c, lossd, ready = replica(device)
+        if ready is not None:
+            torch.cuda.current_stream(device_key(device)).wait_event(ready)
+        vals = [lossd.tensor(c.apply(p, a)) for a in assignments]
+        # sync: the one host pull per SPDY round (per partition, placed)
         return torch.stack(vals).double().cpu().numpy()
 
+    eval_batched.supports_device = True
+    eval_batched.replicas = replicas
     return eval_batched
 
 
@@ -120,10 +158,10 @@ def oneshot_prune(cfg, params, calib_batches: List[dict],
     ``mesh``/``data_axes`` (or the installed activation context) shard
     the calibration and the database over the ranks of the mesh. The
     latency table is built on the mesh's first rank and broadcast (a
-    measured table differs from build to build), and every rank runs the
-    unplaced search on the same inputs, so every rank returns the
-    single-process result. The reference also places the search's
-    populations on the mesh's devices; that is ROADMAP Queue 1 item 6b.
+    measured table differs from build to build), and the loss-scored
+    search places each target's candidates on the rank ``k % mesh.size``
+    (``spdy.search_family(mesh=)``), so every rank returns the
+    single-process result.
     """
     dev = resolve_device(device)
     mesh, data_axes = resolve_mesh(mesh, data_axes)
@@ -174,7 +212,8 @@ def oneshot_prune(cfg, params, calib_batches: List[dict],
         results = search_family(db, table, targets, steps=search_steps,
                                 pop=search_pop, eval_fn=eval_fn,
                                 eval_batched=eval_batched, seed=seed,
-                                batched=search_batched, verbose=verbose)
+                                batched=search_batched, mesh=mesh,
+                                verbose=verbose)
 
     variants: Dict[float, PrunedVariant] = {}
     with stage("stitch"):

@@ -23,25 +23,58 @@ the equivalence reference (for the analytic score, bit-identical
 results). Host-side numpy throughout; the same seed gives the same
 candidates as the JAX package's engine.
 
-Degradation: when the batched scorer fails with a fault injected at
-``spdy.batched_eval`` or a CUDA out-of-memory error, the ``spdy.batched_eval`` breaker of the
-ambient report opens and that round and every later one score serially
-(``eval_fn``), with the same memo and acceptances. Any other failure
-raises.
+Placement: each new key of a round is recorded with the first target
+that produced it, and the round's keys fall into one partition per
+producing target. ``devices`` (more than one, with a scorer whose
+``supports_device`` attribute is true) scores partition ``k`` on
+``devices[k % len(devices)]``, one thread a partition; each list
+position runs its partitions on a CUDA stream of its own, so that a list
+may name one card twice. ``mesh`` is the port's form over the ranks of a
+``distributed.Mesh``: the JAX package places over ``mesh.devices.flat``
+in one process, while the port runs one process a rank, so rank ``r``
+scores the partitions with ``k % mesh.size == r`` on its own device and
+the ranks exchange the scores through one ``Mesh.all_gather`` a round
+(a full-length float64 row a rank, each index read from its owner's
+row). A candidate's score does not depend on which others share its
+call, so placed and unplaced searches give the same bits, and every rank
+holds the same memo. ``PLACED_SCORING`` counts what this process's
+placed scoring did.
+
+Degradation: when the batched scorer, or any partition of a placed
+round on any thread or rank, fails with a fault injected at
+``spdy.batched_eval`` or a CUDA out-of-memory error, the
+``spdy.batched_eval`` breaker of the ambient report opens and that round
+and every later one score serially and unplaced (``eval_fn``), with the
+same memo and acceptances. On a mesh the ranks share that decision with
+one ``Mesh.any`` before the round's all-gather, so every rank demotes
+and only the faulting one counts an injection. Any other failure raises.
 """
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from ..robustness.healing import demotable
 from ..robustness.report import current_report
+from ..runtime.device import join_streams, placement_streams
 from .database import ModuleDB
 from .latency import LatencyTable
 
 SeedLike = Union[int, np.random.SeedSequence]
+SITE = "spdy.batched_eval"
+
+# what this process's placed scoring did: scorer calls (one a
+# partition), candidates scored by producing target, and mesh
+# all-gathers; a caller zeroes it with reset_placed_scoring
+PLACED_SCORING = {"calls": 0, "scored": {}, "all_gathers": 0}
+
+
+def reset_placed_scoring() -> None:
+    PLACED_SCORING.update(calls=0, scored={}, all_gathers=0)
 
 
 @dataclass
@@ -166,6 +199,82 @@ def dp_select_batched(costs: List[np.ndarray], times=None, budget=None,
     return choices, totals
 
 
+def _partitions(new_from: List[int]) -> List[Tuple[int, List[int]]]:
+    """A round's new keys by first-producing target: ``(k, indices)``
+    pairs, ``k`` ascending."""
+    parts: Dict[int, List[int]] = {}
+    for i, k in enumerate(new_from):
+        parts.setdefault(k, []).append(i)
+    return sorted(parts.items())
+
+
+def _count_placed(parts) -> None:
+    PLACED_SCORING["calls"] += len(parts)
+    scored = PLACED_SCORING["scored"]
+    for k, idxs in parts:
+        scored[k] = scored.get(k, 0) + len(idxs)
+
+
+def _eval_placed(eval_batched, assemble, new_keys: List[tuple],
+                 new_from: List[int], devices) -> np.ndarray:
+    """One round's scoring placed on ``devices``: the partition of target
+    ``k`` is scored by one call on ``devices[k % len(devices)]``, one
+    thread a partition, under that list position's stream; the scores
+    are gathered into one float64 array. When partitions fail, one that
+    is not demotable is raised first."""
+    parts = _partitions(new_from)
+    streams = placement_streams(devices)
+
+    def run(k, idxs):
+        pos = k % len(devices)
+        with torch.cuda.stream(streams[pos]):
+            return eval_batched([assemble(new_keys[i]) for i in idxs],
+                                device=devices[pos])
+
+    with ThreadPoolExecutor(max_workers=len(parts)) as ex:
+        futures = [ex.submit(run, k, idxs) for k, idxs in parts]
+    join_streams(streams)
+    errors = [f.exception() for f in futures if f.exception() is not None]
+    if errors:
+        raise next((e for e in errors if not demotable(e, SITE)), errors[0])
+    vals = np.empty((len(new_keys),), np.float64)
+    for (_, idxs), f in zip(parts, futures):
+        vals[idxs] = np.asarray(f.result(), np.float64)
+    _count_placed(parts)
+    return vals
+
+
+def _eval_on_ranks(eval_batched, assemble, new_keys: List[tuple],
+                   new_from: List[int], mesh, rep) -> Optional[np.ndarray]:
+    """The mesh form of `_eval_placed`: this rank scores the partitions
+    of the targets ``k`` with ``k % mesh.size == mesh.index()``, one call
+    each on its own device. One ``Mesh.any`` shares a failure (then every
+    rank trips the breaker and None is returned), one ``Mesh.all_gather``
+    the scores. Every rank calls both, whether it owns a partition or
+    not."""
+    n, me = mesh.size, mesh.index()
+    parts = [(k, idxs) for k, idxs in _partitions(new_from) if k % n == me]
+    row = np.zeros((len(new_keys),), np.float64)
+    failed = rep.breaker_open(SITE)
+    why = "a failure on another rank"
+    if not failed:
+        try:
+            for k, idxs in parts:
+                row[idxs] = np.asarray(eval_batched(
+                    [assemble(new_keys[i]) for i in idxs]), np.float64)
+        except Exception as e:
+            if not demotable(e, SITE):
+                raise
+            failed, why = True, repr(e)
+    if mesh.any(failed):
+        rep.trip(SITE, reason=f"placed scoring failed: {why}")
+        return None
+    rows = mesh.all_gather(row[None, :])
+    _count_placed(parts)
+    PLACED_SCORING["all_gathers"] += 1
+    return rows[np.asarray(new_from) % n, np.arange(len(new_keys))]
+
+
 def _spawn_rngs(seed: SeedLike, n: int) -> List[np.random.Generator]:
     """Mutually independent per-target RNG streams."""
     root = (seed if isinstance(seed, np.random.SeedSequence)
@@ -201,7 +310,7 @@ def search_family(db: Dict[str, ModuleDB], table: LatencyTable,
                   eval_batched: Optional[
                       Callable[[List[Dict[str, int]]], np.ndarray]] = None,
                   seed: SeedLike = 0, batched: bool = True,
-                  share_pool: bool = True,
+                  share_pool: bool = True, devices=None, mesh=None,
                   verbose: bool = False) -> Dict[float, SearchResult]:
     """One amortized SPDY search over a whole speedup-target family.
 
@@ -211,7 +320,16 @@ def search_family(db: Dict[str, ModuleDB], table: LatencyTable,
     round's new candidates one by one with ``eval_fn`` (or
     ``eval_batched`` of one). With neither, candidates get the paper's
     analytic sum-of-squared-priors score.
+
+    ``devices`` (more than one, with a scorer that ``supports_device``)
+    places each target's new candidates on its own device, and ``mesh``
+    (more than one rank) on its own rank; the batched scorer's rounds
+    only (see the module docstring). Either gives every target the
+    unplaced search's result bit for bit.
     """
+    if devices is not None and mesh is not None:
+        raise ValueError("search_family places on devices= (one process) "
+                         "or on mesh= (one process a rank), not both")
     targets = list(targets)
     K = len(targets)
     if K == 0:
@@ -251,6 +369,9 @@ def search_family(db: Dict[str, ModuleDB], table: LatencyTable,
     n_evals = 0
     analytic = eval_fn is None and eval_batched is None
     rep = current_report()
+    placed = (devices is not None and len(devices) > 1
+              and getattr(eval_batched, "supports_device", False))
+    ranks = mesh if mesh is not None and mesh.size > 1 else None
 
     rnd = 0
     while any(d < steps for d in done):
@@ -277,6 +398,7 @@ def search_family(db: Dict[str, ModuleDB], table: LatencyTable,
 
         # dedup this round's feasible candidates against the shared memo
         new_keys: List[tuple] = []
+        new_from: List[int] = []  # the first target producing each new key
         for k, C, ch in entries:
             for p in range(ch.shape[0]):
                 if ch[p, 0] < 0:
@@ -285,6 +407,7 @@ def search_family(db: Dict[str, ModuleDB], table: LatencyTable,
                 if key not in memo and key not in producer:
                     producer[key] = C[p].copy()
                     new_keys.append(key)
+                    new_from.append(k)
 
         if new_keys:
             if analytic:
@@ -292,19 +415,25 @@ def search_family(db: Dict[str, ModuleDB], table: LatencyTable,
                         for key in new_keys]
             else:
                 vals = None
-                if (batched and eval_batched is not None
-                        and not rep.breaker_open("spdy.batched_eval")):
+                if batched and eval_batched is not None and ranks is not None:
+                    # the mesh shares its demotion: None on every rank
+                    vals = _eval_on_ranks(eval_batched, assemble, new_keys,
+                                          new_from, ranks, rep)
+                elif (batched and eval_batched is not None
+                        and not rep.breaker_open(SITE)):
                     try:
-                        vals = np.asarray(eval_batched(
-                            [assemble(key) for key in new_keys]), np.float64)
+                        vals = (_eval_placed(eval_batched, assemble,
+                                             new_keys, new_from, devices)
+                                if placed else np.asarray(eval_batched(
+                                    [assemble(key) for key in new_keys]),
+                                    np.float64))
                     except Exception as e:
-                        if not demotable(e, "spdy.batched_eval"):
+                        if not demotable(e, SITE):
                             raise
                         # the degradation rung: this round and every later
-                        # one score serially, with the same memo and the
-                        # same acceptance stream
-                        rep.trip("spdy.batched_eval",
-                                 reason=f"batched eval failed: {e!r}")
+                        # one score serially and unplaced, with the same
+                        # memo and the same acceptance stream
+                        rep.trip(SITE, reason=f"batched eval failed: {e!r}")
             if vals is None:
                 fn = eval_fn if eval_fn is not None else \
                     (lambda a: float(eval_batched([a])[0]))
@@ -381,19 +510,14 @@ def search(db: Dict[str, ModuleDB], table: LatencyTable,
            eval_batched: Optional[
                Callable[[List[Dict[str, int]]], np.ndarray]] = None,
            seed: SeedLike = 0, batched: bool = True,
-           devices: Optional[List] = None,
+           devices: Optional[List] = None, mesh=None,
            verbose: bool = False) -> SearchResult:
     """Single-target random-mutation search (paper §3.2): a one-target
-    `search_family`, with the JAX package's signature. ``batched=False``
-    is the serial equivalence reference (the same rounds and mutations,
-    the scalar DP, per-candidate ``eval_fn``). Placing populations on
-    several ``devices`` is not ported."""
-    if devices is not None and len(devices) > 1:
-        raise NotImplementedError(
-            "search(devices=[...]) over more than one device: placed SPDY "
-            "populations are not ported yet (ROADMAP Queue 1 item 6b)")
+    `search_family`, with the JAX package's signature and ``mesh``.
+    ``batched=False`` is the serial equivalence reference (the same
+    rounds and mutations, the scalar DP, per-candidate ``eval_fn``)."""
     return search_family(
         db, table, [target_speedup], steps=steps, pop=pop,
         mutate_frac=mutate_frac, nbins=nbins, eval_fn=eval_fn,
         eval_batched=eval_batched, seed=seed, batched=batched,
-        verbose=verbose)[target_speedup]
+        devices=devices, mesh=mesh, verbose=verbose)[target_speedup]

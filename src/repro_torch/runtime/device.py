@@ -6,7 +6,7 @@ without it raises instead of quietly running on the CPU.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -27,6 +27,45 @@ def synchronize(device: torch.device) -> None:
     """Wait for queued device work (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def device_key(device: Union[str, torch.device]) -> torch.device:
+    """One name for each device (a bare ``"cuda"`` is the current card,
+    and every ``"cpu:i"`` the CPU), so that two names of one device
+    compare equal."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return torch.device("cpu")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def placement_streams(devices: Sequence) -> List[Optional["torch.cuda.Stream"]]:
+    """A new CUDA stream for each entry of ``devices`` that names a CUDA
+    device (None for any other entry), each made to wait for the work
+    queued so far on its device's current stream, so that work queued on
+    it sees the caller's. Run work on one with ``torch.cuda.stream(s)``
+    (a no-op for None), and end with :func:`join_streams`."""
+    out = []
+    for d in devices:
+        dev = (torch.device(d) if isinstance(d, (str, torch.device))
+               else None)
+        if dev is None or dev.type != "cuda":
+            out.append(None)
+            continue
+        s = torch.cuda.Stream(device=dev)
+        s.wait_stream(torch.cuda.current_stream(dev))
+        out.append(s)
+    return out
+
+
+def join_streams(streams: Sequence[Optional["torch.cuda.Stream"]]) -> None:
+    """Make the current stream of each stream's device wait for it: work
+    the caller queues next sees what was queued on the streams."""
+    for s in streams:
+        if s is not None:
+            torch.cuda.current_stream(s.device).wait_stream(s)
 
 
 # elements a pinned staging buffer holds in to_host (256 MB of float16)

@@ -37,7 +37,9 @@ single-process build (at this width each rank runs one lane of two: the
 Algorithm-1 step runs its score sum and solves module by module, since
 their batched forms round a lane by the stack's size on the card;
 ``scripts/diag_torch_lane_bits.py``), on every rank, both kernels
-launched on each.
+launched on each. A loss-scored SPDY search placed over ``["cuda",
+"cuda"]`` (two streams of one card, two threads) gives the unplaced
+search's assignments, scores and histories bit for bit.
 """
 import itertools
 import json
@@ -54,7 +56,9 @@ import torch  # noqa: E402
 
 from repro_torch.configs import GPT2_SMALL, MAMBA2_2P7B, smoke_config
 from repro_torch.configs.base import TrainConfig
-from repro_torch.core.database import apply_assignment, build_database
+from repro_torch.core import spdy
+from repro_torch.core.database import (SnapshotCache, apply_assignment,
+                                       build_database)
 from repro_torch.core.hessian import collect_hessians
 from repro_torch.core.pipeline import (FamilyPreempted, family_run_dir,
                                        gradual_prune, masks_from_assignment)
@@ -62,6 +66,8 @@ from repro_torch.data import (calibration_batches, make_batch_np,
                               synthetic_stream)
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.subproc import run_ranks
+from repro_torch.core.latency import build_table
+from repro_torch.core.oneshot import make_batched_eval
 from repro_torch.kernels import (flash_attention, flash_attention_plain,
                                  hessian_accum, hessian_accum_plain,
                                  obs_downdate, obs_downdate_plain,
@@ -74,7 +80,7 @@ from repro_torch.models.transformer import tree_to
 from repro_torch.optim.adamw import tree_leaves
 from repro_torch.robustness import (FaultInjected, FaultPlan, install,
                                     report_scope)
-from repro_torch.runtime.costmodel import HardwareSpec, InferenceEnv
+from repro_torch.runtime.costmodel import H100_SXM, HardwareSpec, InferenceEnv
 from repro_torch.runtime.device import to_host
 from repro_torch.serve import DenseServeModel, ServeEngine, synthetic_requests
 from repro_torch.train import (Trainer, make_train_state, make_train_step)
@@ -1212,3 +1218,37 @@ def test_sharded_calibration_and_database_on_the_card(cuda_device):
         assert r["launches"]["hessian_accum"] > 0
         assert r["launches"]["obs_downdate"] > 0
     assert ranks[0]["digest"] == ranks[1]["digest"]
+
+
+@pytest.mark.cuda
+def test_placed_search_on_two_streams_equals_unplaced(cuda_device):
+    cfg = GPT2_SMALL.replace(num_layers=6, d_model=128, d_ff=512,
+                             num_heads=4, num_kv_heads=4, head_dim=32,
+                             vocab_size=512)
+    params = model_init(cfg, torch.Generator().manual_seed(0),
+                        device=cuda_device)
+    calib = calibration_batches(cfg, 16, 128, batch=8)
+    db = build_database(cfg, params, collect_hessians(
+        cfg, params, calib, device=cuda_device), device=cuda_device)
+    cache = SnapshotCache(cfg, db, device=cuda_device)
+    table = build_table(cfg, InferenceEnv(batch=1, seq=128, hw=H100_SXM))
+    targets = [1.25, 1.5, 2.0]
+
+    def run(devices=None):
+        spdy.reset_placed_scoring()
+        fn = make_batched_eval(cfg, params, cache, calib[:1],
+                               device=cuda_device)
+        res = spdy.search_family(db, table, targets, steps=24, pop=8,
+                                 seed=3, eval_batched=fn, devices=devices)
+        return res, dict(spdy.PLACED_SCORING), fn
+
+    want, _, _ = run()
+    got, placed, fn = run(["cuda", "cuda"])
+    for t in targets:
+        assert got[t].assignment == want[t].assignment, t
+        assert got[t].score == want[t].score, t
+        assert got[t].history == want[t].history, t
+        assert got[t].n_evals == want[t].n_evals, t
+    assert sum(placed["scored"].values()) == want[targets[0]].n_evals
+    assert placed["calls"] > 3
+    assert list(fn.replicas) == [torch.device("cuda", 0)]

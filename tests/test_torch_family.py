@@ -577,12 +577,21 @@ def test_arguments_not_ported_raise(run, tmp_path):
 
 def test_search_arguments_not_ported_raise(ref_family, cfg):
     """``spdy.search`` is a one-target ``search_family``; its
-    multi-device path raises, and its serial path (ported with item 4)
-    gives the batched path's result."""
+    multi-device path (ported with item 6b) and its serial path (ported
+    with item 4) give the batched path's result."""
     db = _load_db(cfg, os.path.join(ref_family[0], "t1.5", "db.npz"))
     table = build_table(cfg, ENV, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        spdy.search(db, table, 1.5, steps=4, pop=4, devices=["a", "b"])
+
+    def placeable(al, device=None):
+        return np.asarray([float(sum(a.values())) for a in al])
+
+    placeable.supports_device = True
+    kw = dict(steps=8, pop=4, seed=5, eval_batched=placeable)
+    on_two = spdy.search(db, table, 1.5, devices=["cpu", "cpu"], **kw)
+    unplaced = spdy.search(db, table, 1.5, **kw)
+    assert on_two.assignment == unplaced.assignment
+    assert on_two.score == unplaced.score
+    assert on_two.history == unplaced.history
     one = spdy.search(db, table, 1.5, steps=8, pop=4, seed=5)
     fam = spdy.search_family(db, table, [1.5], steps=8, pop=4, seed=5)[1.5]
     assert one.assignment == fam.assignment and one.score == fam.score

@@ -164,6 +164,7 @@ emit_result(out)
 """
 
 DB_SCRIPT = r"""
+from repro_torch.core import spdy
 from repro_torch.core.database import build_database
 from repro_torch.core.oneshot import oneshot_prune
 from repro_torch.data import calibration_batches
@@ -208,6 +209,31 @@ res = {key: oneshot_prune(CFG, params, calib, env, [1.5, 2.0], mesh=m,
 out["oneshot"] = {key: {str(t): [v.assignment, v.speedup]
                         for t, v in r.variants.items()}
                   for key, r in res.items()}
+
+
+def searched(r):
+    return {str(t): [v.assignment, v.speedup, v.search.score,
+                     v.search.history, v.search.n_evals]
+            for t, v in r.variants.items()}
+
+
+# the placed search: 3 targets on the 2 ranks, loss-scored, each rank
+# scoring its own targets' candidates; then a scorer fault on rank 0 only.
+# Fed the Hessians h, whose sharded database is the single-process one bit
+# for bit, so that the scores see only the placement
+kw3 = dict(search_steps=24, search_pop=8, seed=3, hessians=h, device=dev)
+targets3 = [1.25, 1.5, 2.0]
+out["placed_single"] = searched(oneshot_prune(CFG, params, calib, env,
+                                              targets3, **kw3))
+for key, rule in (("placed", None),
+                  ("placed_fault", "spdy.batched_eval:raise@0")):
+    plan = FaultPlan.parse(rule) if rule and rank == 0 else None
+    spdy.reset_placed_scoring()
+    with install(plan), report_scope() as rep:
+        got = oneshot_prune(CFG, params, calib, env, targets3, mesh=mesh,
+                            **kw3)
+    out[key] = {"family": searched(got), "counts": rep.as_dict()["counts"],
+                "scoring": dict(spdy.PLACED_SCORING)}
 emit_result(out)
 """
 
@@ -575,3 +601,43 @@ def test_sharded_oneshot_prune_gives_each_rank_the_single_process_family(
         assert r["oneshot"]["sharded"] == single
     assert all(s >= t for t, (_, s) in
                ((float(k), v) for k, v in single.items()))
+
+
+def test_placed_oneshot_prune_gives_each_rank_the_single_process_search(
+        db_run):
+    """Loss-scored, 3 targets on 2 ranks: every rank's assignments,
+    speedups, scores, histories and ``n_evals`` are the single-process
+    search's bit for bit."""
+    single = db_run[0]["placed_single"]
+    assert single == db_run[1]["placed_single"]
+    for r in db_run:
+        assert r["placed"]["family"] == single
+        assert r["placed"]["counts"]["demotions"] == {}
+
+
+def test_each_rank_scores_only_its_own_targets_candidates(db_run):
+    n_evals = next(iter(db_run[0]["placed_single"].values()))[4]
+    total = 0
+    for rank, r in enumerate(db_run):
+        scoring = r["placed"]["scoring"]
+        assert scoring["scored"], f"rank {rank} scored nothing"
+        assert all(int(k) % 2 == rank for k in scoring["scored"])
+        assert scoring["calls"] >= len(scoring["scored"])
+        total += sum(scoring["scored"].values())
+    assert total == n_evals
+    # one all-gather a round with new keys, on both ranks alike
+    gathers = [r["placed"]["scoring"]["all_gathers"] for r in db_run]
+    assert gathers[0] == gathers[1] >= 1
+
+
+def test_a_scorer_fault_on_one_rank_demotes_both_ranks_once(db_run):
+    single = db_run[0]["placed_single"]
+    for rank, r in enumerate(db_run):
+        faulted = r["placed_fault"]
+        assert faulted["family"] == single
+        counts = faulted["counts"]
+        assert counts["demotions"] == {"spdy.batched_eval": 1}
+        assert counts["injected"] == (
+            {"spdy.batched_eval": 1} if rank == 0 else {})
+        # demoted in the first round: no round was gathered
+        assert faulted["scoring"]["all_gathers"] == 0
