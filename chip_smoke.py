@@ -105,9 +105,9 @@ Phases (any failure exits non-zero and prints no result):
    repro_torch.launch.train --arch gpt2-small --steps 10 --batch 8 --seq
    512``) must exit 0. Prints the median step time, tokens/s, peak
    memory, the checkpoint's bytes and its save and restore seconds;
-9. (run right after phase 8, on the first 4 layers of phase 4's dense
+9. (run right after phase 8, on the first 2 layers of phase 4's dense
    model and its calibration) the gradual family engine:
-   ``gradual_prune`` for targets 1.5x and 2x,
+   ``gradual_prune`` for targets 1.3x and 1.5x,
    each target calibrated again, its database built, searched (16
    candidates, population 8, scored by loss), finetuned 16 steps of 8 x
    512 with the reference's gradual defaults and a checkpoint at step 8
@@ -286,11 +286,14 @@ Phases (any failure exits non-zero and prints no result):
    ``chaos_launches``. After the last phase the process's default
    robustness report holds no injection, open breaker or demotion, and
    no report counted an injection or a demotion outside phase 17.
-18. the sharded calibration and database (run right after phase 4, on
-   its GPT-2 small, calibration batches and database): two ranks share
-   the card through ``launch.subproc.run_ranks`` (gloo groups staged
-   through host memory), each rebuilds phase 4's weights and tokens from
-   their seeds and shows the parent's digests of them. (a)
+18. the sharded calibration and database, the mesh trainer and the
+   family over ranks (run right after phase 4, on its GPT-2 small,
+   calibration batches and database): two ranks share the card through
+   ``launch.subproc.run_ranks`` (gloo groups staged through host
+   memory), each rebuilds phase 4's weights and tokens from their seeds
+   and shows the parent's digests of them; the parent's references of
+   (d) and (f) run beside the ranks, which wait for the files the parent
+   hands them. (a)
    ``collect_hessians(mesh=...)`` within 1e-5 of max |H| of a clean
    single-process ``collect_hessians`` in the parent; (b)
    ``build_database(mesh=...)`` fed the parent's Hessians, phase 4's
@@ -307,9 +310,33 @@ Phases (any failure exits non-zero and prints no result):
    ranks, the ranks' scored candidates summing to ``n_evals``; (e) (d)
    with ``spdy.batched_eval:raise@0`` installed on rank 0 only: both
    ranks demote once in the first round (no all-gather), one injection
-   on rank 0, (d)'s family. Seconds per part, each rank's scored
-   candidates and all-gathers, and JSON ``sharded_launches`` (each
-   rank's launches of hessian_accum and obs_downdate, all above 0).
+   on rank 0, (d)'s family; (f) the mesh trainer
+   (``Trainer(mesh=, specs=)``, FSDP slices of params, m, v and the
+   teacher) on phase 4's model, 6 steps of 8 x 256 tokens in 2
+   microbatches, distilled (logit 1.0, token 0.5) from a second seeded
+   draw at lr 3e-7 (``MESH_TRAIN`` says why), held by the reference's
+   bounds: params within 1e-4 of the parent's single-process trainer on
+   the same inputs, and each step's loss within 1e-3 of the
+   single-process loss of the same params and batch; and by what grows
+   with the work: the trajectories' losses within 0.1 of each other,
+   each step's gradient norm within 1e-3 of the parent's, relative, and
+   the update over the 6 steps within 0.05 of the parent's, relative
+   (limits between the sound run and planted faults, ``MESH_TRAIN``);
+   ``logit_kl`` above 0 every step, each rank holding only its slices
+   of params, m and v; (g) the same with
+   ``grad_compression="int8_ef"``: one residual row a rank, nonzero and
+   changed at every step, the last loss within 0.15 of (f)'s; (h)
+   ``gradual_prune(mesh=, specs=)`` as phase 17 (g) (the first 2
+   layers, 1.3x on the cost model, 8 finetune steps of 4 x 256) run
+   through, then killed at step 4 of its finetune and resumed on both
+   ranks: bit-equal (digests of assignment, speedup, losses and params;
+   the manifests' artifact digests), hessian_accum and obs_downdate
+   launched on each rank, and no write under the run directories from
+   rank 1 (rank 0's writes are counted by the same audit). Seconds per
+   part, each rank's scored candidates and all-gathers, the calls,
+   bytes and seconds each collective staged in each part, and JSON
+   ``sharded_launches`` (each rank's launches of hessian_accum and
+   obs_downdate over (a)-(h), all above 0).
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 product on the
 card is a full fp32 product and the fp32 tolerances below hold. The train
@@ -345,8 +372,9 @@ HBM_BYTES_PER_S = 3.35e12
 # than before, so phase 5 served 64 requests (not 128) and phase 10 runs
 # 1 Mamba-2 layer (not 2). With phase 15 added it took 1155 s, so phase 5
 # serves 32 requests, phase 6 runs 6 Mamba-2 layers (not 8), phase 7
-# serves 8 requests a member (not 16), phase 9 runs 4 GPT-2 layers and
-# phase 14 8 encoder layers (not 32)
+# serves 8 requests a member (not 16), phase 9 ran 4 GPT-2 layers and
+# phase 14 8 encoder layers (not 32); phase 9 runs 2 since phase 18 runs
+# the mesh trainer and a family over ranks (FAMILY_LAYERS)
 MAIN_LAYERS = 6
 # phase 4's targets. Timed by device time, GPT-2 small's 6 layers leave
 # the unaligned 2048 x 768 x 50257 logits head more than half of the dense
@@ -2319,7 +2347,7 @@ def run_train_path(torch, kernels, params, calib, db, fam):
 
 # phase 9: the gradual family engine (core/pipeline.py gradual_prune) on
 # the first FAMILY_LAYERS layers of phase 4's dense GPT-2 small and its
-# calibration batches: targets 1.5x and 2x,
+# calibration batches: targets 1.3x and 1.5x,
 # each pruned, finetuned 16 steps of 8 x 512 with the reference's gradual
 # defaults (lr 8e-5, 5 warm-up steps, logit 1.0 and token 0.5
 # distillation), checkpointed at step 8 and exported on a background
@@ -2329,7 +2357,7 @@ def run_train_path(torch, kernels, params, calib, db, fam):
 # checkpoint at a finetune's last step (no run reads it; it was 2 of a
 # run's 4 checkpoint writes until the script outgrew its time with phase
 # 15), and each target's removed once its finetune has returned
-FAMILY_TARGETS = [1.5, 2.0]
+FAMILY_TARGETS = [1.3, 1.5]
 FAMILY_KW = {"finetune_steps": 16, "ckpt_every": 8, "search_steps": 16,
              "search_pop": 8}
 FAMILY_TRAIN = {"learning_rate": 8e-5, "warmup_steps": 5, "total_steps": 16,
@@ -2344,12 +2372,13 @@ FAMILY_STOP = 12
 # launch, is an assumption, not a measurement. The speedups it gives are
 # the model's, not measured ones
 FAMILY_ENV = {"batch": 16, "seq": 128, "mode": "prefill"}
-# the family runs the first 4 of phase 4's 6 layers: the cost model's
-# ceiling is 2.27x there (2.70x at 6 layers, 2.02x at 3), so 2x lies at
-# 0.88 of it. It ran all 6 (88.66 s, two thirds of it the per-layer
+# the family runs the first 2 of phase 4's 6 layers: the cost model's
+# ceiling is 1.73x there (2.27x at 4 layers, 2.70x at 6), so 1.5x lies
+# at 0.87 of it. It ran all 6 (88.66 s, two thirds of it the per-layer
 # database, finetune and artifacts of runs A and B) until phase 15 took
-# the script to 1155 s
-FAMILY_LAYERS = 4
+# the script to 1155 s, then 4 with targets 1.5x and 2x (52.21 s) until
+# phase 18's mesh trainer and family needed the time
+FAMILY_LAYERS = 2
 ARTIFACT_KINDS = ("hessians.npz", "db.npz", "params.npz", "ckpt",
                   "family.json")
 
@@ -2450,8 +2479,9 @@ def run_family_path(torch, kernels, params, calib):
         t0 = time.perf_counter()
         preempted("b", (0, "search"))
         preempted("b", (1, "finetune", FAMILY_STOP))
-        ck = CheckpointManager(os.path.join(run_dir("b"), "t2", "ckpt"),
-                               async_save=False)
+        last_t = f"{FAMILY_TARGETS[-1]:g}"
+        ck = CheckpointManager(os.path.join(run_dir("b"), f"t{last_t}",
+                                            "ckpt"), async_save=False)
         latest = ck.latest_step()
         ck.close()
         check(latest == FAMILY_KW["ckpt_every"],
@@ -2467,8 +2497,9 @@ def run_family_path(torch, kernels, params, calib):
               f"the resume {time.perf_counter() - t1:.3f} s; it executed "
               f"{last}; bytes by artifact kind "
               + json.dumps(_artifact_bytes(run_dir("b"))))
-        check(last == [("2", "finetune")],
-              f"the last resume executed {last}, not target 2's finetune")
+        check(last == [(last_t, "finetune")],
+              f"the last resume executed {last}, not target {last_t}'s "
+              "finetune")
         for t in FAMILY_TARGETS:
             print(f"  target {t}x resumed: stage seconds " + json.dumps(
                 {k: round(s, 4) for k, s in
@@ -4570,6 +4601,36 @@ SHARDED_RANKS = 2
 SHARDED_TIMEOUT = 240
 SHARDED_KERNELS = ONESHOT_KERNELS
 SHARDED_SEARCH = {"search_steps": 48, "search_pop": 16, "seed": 0}
+# (f) and (g): the mesh trainer on phase 4's model, 6 steps of 8 x 256
+# tokens in 2 microbatches, distilled (logit 1.0, token 0.5) from a
+# second seeded draw, fp32 then int8_ef. (f) keeps the reference's
+# bounds (params within 1e-4 of the parent's single-process trainer,
+# each step's loss within 1e-3 of the single-process loss of the same
+# params and batch), but at this learning rate the whole update is
+# about 1e-6 a weight, so the params bound cannot see a wrong update:
+# (f) is also held to what grows with the work, each limit set between
+# the sound run's largest reading and the nearest planted fault's
+# (scripts/sweep_torch_mesh_lr.py --plant, on an NVIDIA H100 80GB HBM3
+# at 700 W; PERF.md, section 6): the trajectories' largest loss gap
+# (sound 1.05e-2; faults 0.554 and up), each step's gradient norm
+# relative to the parent's (sound 9.6e-5; no update 9.4e-3, half the
+# batch 0.136, gradients not all-reduced 0.44), and the update
+# |d_mesh - d_one| / |d_one| over the rank's slices (sound 9.9e-3;
+# faults 0.419 and up). (g)'s last loss stays within 0.15 of (f)'s.
+# The learning rate: at this model's loss (about 1400, against about 46
+# at the reference test's width) the int8 run's last loss fell within
+# 0.15 of fp32's only at 3e-7 and below (at 1e-6 0.163), and the loss
+# still falls 4.6 more over the 6 steps than at 1e-7
+MESH_TRAIN = {"learning_rate": 3e-7, "warmup_steps": 2, "total_steps": 6,
+              "microbatches": 2, "distill_logit": 1.0, "distill_token": 0.5}
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 8, 256
+MESH_TEACHER_SEED = 1
+MESH_PARAMS_TOL, MESH_LOSS_TOL, INT8_LOSS_GAP = 1e-4, 1e-3, 0.15
+MESH_PATH_GAP, MESH_GRAD_REL, MESH_UPDATE_REL = 0.1, 1e-3, 0.05
+# (h): gradual_prune(mesh=, specs=) as phase 17 (g): the first 2 layers,
+# one target on the cost model, 8 finetune steps of 4 x 256, killed at
+# step 4 and resumed
+MESH_FAMILY_STOP = (0, "finetune", 4)
 # each rank imports this file and runs sharded_rank (ROOT and WORK are
 # prepended)
 SHARDED_SCRIPT = """
@@ -4618,14 +4679,312 @@ def family_of(res):
             for t, v in res.variants.items()}
 
 
+def audit_writes(root: str, log: list):
+    """A context in which every Python-level write under ``root`` (an
+    ``open`` for writing, a rename, replace, remove, directory creation
+    or removal) appends its path to ``log``."""
+    import builtins
+    import contextlib
+    import io
+    import shutil
+
+    root = os.path.abspath(root)
+
+    def note(path):
+        path = os.path.abspath(os.fsdecode(path))
+        if path.startswith(root):
+            log.append(path)
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = [(builtins, "open"), (io, "open"), (shutil, "rmtree")] + [
+            (os, n) for n in ("replace", "rename", "remove", "unlink",
+                              "makedirs", "mkdir", "rmdir")]
+        real = {(m, n): getattr(m, n) for m, n in saved}
+
+        def opener(f, mode="r", *a, **k):
+            if isinstance(f, (str, bytes, os.PathLike)) and any(
+                    c in mode for c in "wax+"):
+                note(f)
+            return real[(builtins, "open")](f, mode, *a, **k)
+
+        def wrap(fn):
+            def call(path, *a, **k):
+                note(path)
+                return fn(path, *a, **k)
+            return call
+
+        try:
+            builtins.open = io.open = opener
+            for m, n in saved[2:]:
+                setattr(m, n, wrap(real[(m, n)]))
+            yield log
+        finally:
+            for (m, n), fn in real.items():
+                setattr(m, n, fn)
+
+    return ctx()
+
+
+def staged_since(mesh, before):
+    """Per collective, [calls, bytes, seconds] since the snapshot
+    ``before`` of ``mesh.staged``."""
+    return {k: [v[0] - before.get(k, [0, 0, 0.0])[0],
+                v[1] - before.get(k, [0, 0, 0.0])[1],
+                round(v[2] - before.get(k, [0, 0, 0.0])[2], 4)]
+            for k, v in mesh.staged.items()}
+
+
+def mesh_train_setup(torch):
+    """(f) and (g)'s teacher (the second seeded draw) and TrainConfig."""
+    from repro_torch.configs import GPT2_SMALL
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import model_init
+
+    cfg = GPT2_SMALL.replace(num_layers=MAIN_LAYERS)
+    teacher = model_init(cfg, torch.Generator().manual_seed(
+        MESH_TEACHER_SEED), device="cuda")
+    return teacher, TrainConfig(**MESH_TRAIN)
+
+
+def mesh_train_data(cfg):
+    from repro_torch.data import synthetic_stream
+    return synthetic_stream(cfg, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, seed=3)
+
+
+def mesh_family_cfg():
+    from repro_torch.configs import GPT2_SMALL
+    return GPT2_SMALL.replace(num_layers=CHAOS_FAMILY_LAYERS)
+
+
+def mesh_family(torch, params, calib, ckpt_dir, **kw):
+    """(h)'s family: phase 17 (g)'s, over ``kw``'s mesh and specs."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.pipeline import gradual_prune
+    from repro_torch.data import synthetic_stream
+    from repro_torch.runtime.costmodel import H100_SXM, InferenceEnv
+
+    cfg2, L = mesh_family_cfg(), CHAOS_FAMILY_LAYERS
+    p2 = {**params, "layers": {grp: {k: t[:L] for k, t in sub.items()}
+                               for grp, sub in params["layers"].items()}}
+    tcfg = TrainConfig(**{**FAMILY_TRAIN, "total_steps":
+                          CHAOS_FAMILY_KW["finetune_steps"]})
+    return gradual_prune(
+        cfg2, p2, InferenceEnv(hw=H100_SXM, **FAMILY_ENV),
+        CHAOS_FAMILY_TARGETS,
+        lambda step: synthetic_stream(cfg2, CHAOS_FAMILY_BATCH,
+                                      CHAOS_FAMILY_SEQ, seed=0,
+                                      start_step=step),
+        calib, tcfg=tcfg, ckpt_dir=ckpt_dir, seed=0, keep_checkpoints=False,
+        device="cuda", **CHAOS_FAMILY_KW, **kw)
+
+
+def family_digest(fam):
+    """sha256 of a family's targets, speedups, assignments, losses and
+    params' bits."""
+    import hashlib
+    h = hashlib.sha256()
+    for v in fam:
+        h.update(json.dumps([v.target, v.achieved, v.assignment,
+                             v.loss_before_ft, v.loss_after_ft]).encode())
+        for _, t in tree_paths(v.params):
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tree_paths(tree, prefix=""):
+    """(path, leaf) of a tree of dicts, keys sorted; a spec (a tuple) is
+    a leaf."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_paths(tree[k], f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree
+
+
+def mesh_update_gap(torch, got, one, init, specs, mesh):
+    """(f)'s params against the single-process trainer's on this rank's
+    slices: the largest absolute difference, and ``[|d_mesh - d_one|^2,
+    |d_one|^2]`` where ``d`` is the change from the whole ``init``
+    params (float64 sums). ``got``: the rank's slices; ``one``: the
+    whole final params by path (an ``np.load``); ``specs``: the params'
+    specs."""
+    from repro_torch.distributed import shard_of
+
+    specs = dict(tree_paths(specs))
+    start = dict(tree_paths(init))
+    diff, sums = 0.0, [0.0, 0.0]
+    for k, g in tree_paths(got):
+        o = shard_of(torch.from_numpy(one[k]), specs[k], mesh).to(g.device)
+        s = shard_of(start[k], specs[k], mesh)
+        diff = max(diff, float((g - o).abs().max()))
+        o, g, s = o.double(), g.double(), s.double()
+        sums[0] += float(((g - o) ** 2).sum())
+        sums[1] += float(((o - s) ** 2).sum())
+    return diff, sums
+
+
+def update_rel(sums) -> float:
+    """``|d_mesh - d_one| / |d_one|`` from ``mesh_update_gap``'s sums."""
+    return (sums[0] / sums[1]) ** 0.5 if sums[1] > 0 else float("inf")
+
+
+def grad_norm_gaps(mesh_norms, one_norms):
+    """Each step's relative difference of the mesh trainer's gradient
+    norm from the single-process trainer's."""
+    return [abs(a - b) / b for a, b in zip(mesh_norms, one_norms)]
+
+
+def run_mesh_parts(torch, cfg, params, calib, mesh, work, out, timed,
+                   teacher, tcfg):
+    """Phase 18 (f)-(h) on this rank (see the module docstring), with
+    ``mesh_train_setup``'s teacher and TrainConfig."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.checkpoint.manager import load_json
+    from repro_torch.core.pipeline import FamilyPreempted, family_run_dir
+    from repro_torch.distill.losses import distillation_loss
+    from repro_torch.distributed import axis_size
+    from repro_torch.models import model_specs, param_shapes
+    from repro_torch.train import Trainer
+
+    steps = MESH_TRAIN["total_steps"]
+
+    def trainer(name, compression):
+        return Trainer(cfg, dataclasses.replace(
+            tcfg, grad_compression=compression),
+            ckpt_dir=os.path.join(work, name), ckpt_every=100, log_every=1,
+            teacher_params=teacher, mesh=mesh, specs=model_specs(cfg),
+            device="cuda")
+
+    def holds_its_slices(tr, st):
+        """Each leaf of params, m and v is this rank's slice only."""
+        whole = dict(tree_paths(param_shapes(cfg)))
+        specs = dict(tree_paths(tr._st_sh.params))
+        want = {k: tuple(d // axis_size(mesh, a) for d, a in
+                         zip(w, specs[k] + (None,) * len(w)))
+                for k, w in whole.items()}
+        got = [{k: tuple(x.shape) for k, x in tree_paths(t)}
+               for t in (st.params, st.opt["m"], st.opt["v"])]
+        return all(g == want for g in got) and bool(sum(
+            np.prod(w) for w in want.values()) < sum(
+            np.prod(w) for w in whole.values()))
+
+    def part_f():
+        tr = trainer("f", "none")
+        st = tr.init_or_restore(params)
+        data, same = mesh_train_data(cfg), mesh_train_data(cfg)
+        one_step = []
+        for k in range(steps):
+            # the single-process loss of the params and batch this step
+            # takes: the mean over its microbatches, as the step's
+            batch = {key: v.cuda() for key, v in next(same).items()}
+            whole = tr.params_of(st) if k else params
+            n = batch["tokens"].shape[0] // MESH_TRAIN["microbatches"]
+            with torch.no_grad():
+                one_step.append(float(torch.stack([distillation_loss(
+                    cfg, whole, teacher,
+                    {key: v[i * n:(i + 1) * n] for key, v in batch.items()},
+                    l_logit=MESH_TRAIN["distill_logit"],
+                    l_token=MESH_TRAIN["distill_token"])[0]
+                    for i in range(MESH_TRAIN["microbatches"])]).mean(0)))
+            del whole, batch
+            st = tr.fit(st, data, steps=k + 1, save_last=False)
+        torch.cuda.synchronize()
+        out["f_one_step"] = one_step
+        out["f_losses"] = [m["loss"] for m in tr.metrics_log]
+        out["f_kl"] = [m["logit_kl"] for m in tr.metrics_log]
+        out["f_grad_norms"] = [m["grad_norm"] for m in tr.metrics_log]
+        out["f_step_s"] = [m["step_time"] for m in tr.metrics_log]
+        out["f_slices"] = holds_its_slices(tr, st)
+        with np.load(wait_for(os.path.join(work, "fp32_params.npz"))) as f:
+            out["f_params_diff"], out["f_update"] = mesh_update_gap(
+                torch, st.params, f, params, tr._st_sh.params, mesh)
+        tr.ckpt.close()
+
+    timed("f", part_f)
+
+    def part_g():
+        tr = trainer("g", "int8_ef")
+        st = tr.init_or_restore(params)
+        data = mesh_train_data(cfg)
+        rows, nonzero, changed = set(), [], []
+        for k in range(steps):
+            prev = [e.clone() for _, e in tree_paths(st.ef_err)]
+            st = tr.fit(st, data, steps=k + 1, save_last=False)
+            now = [e for _, e in tree_paths(st.ef_err)]
+            rows |= {int(e.shape[0]) for e in now}
+            nonzero.append(any(bool((e != 0).any()) for e in now))
+            changed.append(any(not torch.equal(a, b)
+                               for a, b in zip(prev, now)))
+            del prev
+        torch.cuda.synchronize()
+        out["g_rows"] = sorted(rows)
+        out["g_nonzero"], out["g_changed"] = nonzero, changed
+        out["g_losses"] = [m["loss"] for m in tr.metrics_log]
+        out["g_step_s"] = [m["step_time"] for m in tr.metrics_log]
+        tr.ckpt.close()
+
+    timed("g", part_g)
+    del teacher
+    torch.cuda.empty_cache()
+
+    def part_h():
+        snap = {k.__name__: k.launches for k in kernels.KERNELS}
+        root = os.path.join(work, "family")
+        kw = dict(mesh=mesh, specs=model_specs(mesh_family_cfg()))
+        writes = []
+        with audit_writes(root, writes):
+            a = mesh_family(torch, params, calib, os.path.join(root, "a"),
+                            **kw)
+            try:
+                mesh_family(torch, params, calib, os.path.join(root, "b"),
+                            stop_after=MESH_FAMILY_STOP, **kw)
+                out["h_killed"] = False
+            except FamilyPreempted:
+                out["h_killed"] = True
+            b = mesh_family(torch, params, calib, os.path.join(root, "b"),
+                            **kw)
+        torch.cuda.synchronize()
+        out["h_launches"] = {k.__name__: k.launches - snap[k.__name__]
+                             for k in kernels.KERNELS}
+        out["h_writes"] = len(writes)
+        out["h_digest"] = [family_digest(a), family_digest(b)]
+        out["h_assignment"] = [a[0].assignment, b[0].assignment]
+        out["h_achieved"] = [a[0].achieved, b[0].achieved]
+        out["h_shas"] = [{t: {k: v for k, v in e.items()
+                              if k.endswith("sha256")}
+                          for t, e in load_json(os.path.join(family_run_dir(
+                              mesh_family_cfg(), CHAOS_FAMILY_TARGETS, 0,
+                              os.path.join(root, name)), "family.json")
+                          )["targets"].items()} for name in ("a", "b")]
+
+    timed("h", part_h)
+
+
 def sharded_env():
     from repro_torch.runtime.costmodel import H100_SXM, InferenceEnv
     return InferenceEnv(batch=16, seq=128, mode="prefill", hw=H100_SXM)
 
 
+def wait_for(path: str) -> str:
+    """``path`` once it exists (the parent renames each file it hands the
+    ranks into place whole), within the phase's timeout."""
+    deadline = time.monotonic() + SHARDED_TIMEOUT
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"the parent never wrote {path}")
+        time.sleep(0.05)
+    return path
+
+
 def sharded_rank(work: str) -> None:
     """Phase 18's rank program (both ranks): phase 4's model rebuilt,
-    then (a)-(d) over a 2-rank mesh; prints the rank's RESULT line."""
+    then (a)-(h) over a 2-rank mesh; prints the rank's RESULT line."""
+    import threading
+
     import numpy as np
     import torch
     from repro_torch.launch.subproc import emit_result, init_rank
@@ -4646,17 +5005,35 @@ def sharded_rank(work: str) -> None:
     out = {"rank": rank, "leaves": leaf_digests(params, calib),
            "seconds": {}}
     mesh = make_mesh((world,), ("data",))
-    with np.load(os.path.join(work, "hessians.npz")) as f:
+    with np.load(wait_for(os.path.join(work, "hessians.npz"))) as f:
         clean = {k: torch.from_numpy(f[k]).cuda() for k in f.files}
-    with open(os.path.join(work, "phase4_db.json")) as f:
+    with open(wait_for(os.path.join(work, "phase4_db.json"))) as f:
         phase4 = json.load(f)
     out["seconds"]["setup"] = time.perf_counter() - t0
+    # beside (a)-(e), which wait on the card and the collectives: the
+    # import that a process's first torch.use_deterministic_algorithms
+    # call makes (torch._inductor's config; 7.0 s of a first train
+    # step's 8.5 s on an NVIDIA H100 80GB HBM3's host,
+    # scripts/probe_torch_first_step.py), then (f)'s teacher drawn
+    teacher = {}
+
+    def prepare():
+        import importlib
+        importlib.import_module("torch._inductor.config")
+        teacher.update(zip(("params", "tcfg"), mesh_train_setup(torch)))
+
+    drawing = threading.Thread(target=prepare)
+    drawing.start()
+
+    out["staged"] = {}
 
     def timed(part, fn):
+        before = {k: list(v) for k, v in mesh.staged.items()}
         t0 = time.perf_counter()
         got = fn()
         torch.cuda.synchronize()
         out["seconds"][part] = time.perf_counter() - t0
+        out["staged"][part] = staged_since(mesh, before)
         return got
 
     kernels.reset_launch_counts()
@@ -4698,8 +5075,105 @@ def sharded_rank(work: str) -> None:
                                  rep.as_dict()["counts"].items() if d}
         out[part + "_search_s"] = res.stage_seconds["search"]
         del res
+    # (f)-(h) the mesh trainer and the family over the ranks
+    drawing.join()
+    run_mesh_parts(torch, cfg, params, calib, mesh, work, out, timed,
+                   teacher["params"], teacher["tcfg"])
     out["launches"] = {k.__name__: k.launches for k in kernels.KERNELS}
     emit_result(out)
+
+
+def single_process_trainer(torch, cfg, params, work):
+    """(f)'s reference in the parent: the single-process trainer on the
+    same weights, teacher and batches; its final params go to
+    ``work/fp32_params.npz`` for the ranks (renamed into place whole),
+    its losses are returned."""
+    import numpy as np
+    from repro_torch.train import Trainer
+
+    teacher, tcfg = mesh_train_setup(torch)
+    tr = Trainer(cfg, tcfg, ckpt_dir=os.path.join(work, "one"),
+                 ckpt_every=100, log_every=1, teacher_params=teacher,
+                 device="cuda")
+    st = tr.fit(tr.init_or_restore(params), mesh_train_data(cfg),
+                steps=MESH_TRAIN["total_steps"], save_last=False)
+    tr.ckpt.close()
+    path = os.path.join(work, "fp32_params.npz")
+    with open(path + ".tmp", "wb") as f:  # the ranks wait for the name
+        np.savez(f, **{k: t.cpu().numpy() for k, t in tree_paths(st.params)})
+    os.replace(path + ".tmp", path)
+    return {"losses": [m["loss"] for m in tr.metrics_log],
+            "grad_norms": [m["grad_norm"] for m in tr.metrics_log],
+            "step_s": [m["step_time"] for m in tr.metrics_log]}
+
+
+def check_mesh_parts(ranks, one):
+    """Phase 18 (f)-(h)'s checks on every rank's RESULT (module
+    docstring)."""
+    print(f"  parent (f): single-process losses {one['losses']}, gradient "
+          f"norms {one['grad_norms']}, step "
+          f"seconds {[round(t, 4) for t in one['step_s']]}")
+    for r in ranks:
+        rank = r["rank"]
+        f_gap = max(abs(a - b) for a, b in zip(r["f_losses"],
+                                               r["f_one_step"]))
+        path_gap = max(abs(a - b) for a, b in zip(r["f_losses"],
+                                                  one["losses"]))
+        grad_rel = max(grad_norm_gaps(r["f_grad_norms"],
+                                      one["grad_norms"]))
+        upd_rel = update_rel(r["f_update"])
+        print(f"  rank {rank} (f): losses {r['f_losses']}, max gap to the "
+              f"single-process loss of the same params and batch "
+              f"{f_gap:.3e}, to the parent's trajectory {path_gap:.3e}, "
+              f"params max diff {r['f_params_diff']:.3e}, gradient norms "
+              f"{r['f_grad_norms']} (largest relative gap {grad_rel:.3e}), "
+              f"update relative gap {upd_rel:.4e}, "
+              f"logit_kl {[round(k, 4) for k in r['f_kl']]}, its slices "
+              f"only {r['f_slices']}, step seconds "
+              f"{[round(t, 4) for t in r['f_step_s']]}")
+        print(f"  rank {rank} (g): losses {r['g_losses']}, residual rows "
+              f"{r['g_rows']}, nonzero {r['g_nonzero']}, changed "
+              f"{r['g_changed']}, step seconds "
+              f"{[round(t, 4) for t in r['g_step_s']]}")
+        print(f"  rank {rank} (h): killed {r['h_killed']}, digests "
+              f"{r['h_digest']}, achieved {r['h_achieved']}, assignment "
+              f"{r['h_assignment'][0]}, writes under the run directories "
+              f"{r['h_writes']}, launches {r['h_launches']}")
+        print(f"  rank {rank} staged [calls, bytes, seconds] by part: "
+              + json.dumps(r["staged"]))
+        check(len(r["f_losses"]) == len(one["losses"])
+              == MESH_TRAIN["total_steps"] and f_gap < MESH_LOSS_TOL
+              and r["f_params_diff"] < MESH_PARAMS_TOL,
+              f"sharded (f) rank {rank}: the mesh trainer is {f_gap:.3e} "
+              f"from the single-process losses and "
+              f"{r['f_params_diff']:.3e} from its params")
+        check(path_gap < MESH_PATH_GAP and grad_rel < MESH_GRAD_REL
+              and upd_rel < MESH_UPDATE_REL,
+              f"sharded (f) rank {rank}: the mesh trainer's trajectory is "
+              f"{path_gap:.3e} from the parent's in loss, its gradient norms "
+              f"{grad_rel:.3e} and its update {upd_rel:.4e} relative")
+        check(all(k > 0 for k in r["f_kl"]) and r["f_slices"],
+              f"sharded (f) rank {rank}: logit_kl {r['f_kl']}, its slices "
+              f"only {r['f_slices']}")
+        check(r["g_rows"] == [1] and all(r["g_nonzero"])
+              and all(r["g_changed"])
+              and abs(r["g_losses"][-1] - r["f_losses"][-1]) < INT8_LOSS_GAP,
+              f"sharded (g) rank {rank}: rows {r['g_rows']}, nonzero "
+              f"{r['g_nonzero']}, changed {r['g_changed']}, last loss "
+              f"{r['g_losses'][-1]} against (f)'s {r['f_losses'][-1]}")
+        check(r["h_killed"] and r["h_digest"][0] == r["h_digest"][1]
+              and r["h_assignment"][0] == r["h_assignment"][1]
+              and r["h_shas"][0] == r["h_shas"][1],
+              f"sharded (h) rank {rank}: the resumed family differs from "
+              "the uninterrupted one")
+        check(all(r["h_launches"][k] > 0 for k in SHARDED_KERNELS),
+              f"sharded (h) rank {rank}: launches {r['h_launches']}")
+        check((r["h_writes"] > 0) == (rank == 0),
+              f"sharded (h) rank {rank}: {r['h_writes']} writes under the "
+              "run directories (the first rank alone writes)")
+    check(len({r["h_digest"][0] for r in ranks}) == 1
+          and len({json.dumps(r["f_losses"]) for r in ranks}) == 1,
+          "sharded (f)/(h): the ranks' results differ")
 
 
 def run_sharded_path(torch, cfg, params, calib, db):
@@ -4708,6 +5182,7 @@ def run_sharded_path(torch, cfg, params, calib, db):
     launches."""
     import shutil
     import tempfile
+    import threading
 
     import numpy as np
     from repro_torch.core.hessian import collect_hessians
@@ -4718,22 +5193,52 @@ def run_sharded_path(torch, cfg, params, calib, db):
     t0 = time.perf_counter()
     work = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
     try:
-        clean = collect_hessians(cfg, params, calib, device="cuda")
-        np.savez(os.path.join(work, "hessians.npz"),
-                 **{k: h.cpu().numpy() for k, h in clean.items()})
-        with open(os.path.join(work, "phase4_db.json"), "w") as f:
-            json.dump(db_digests(db), f)
-        leaves = leaf_digests(params, calib)
-        res = oneshot_prune(cfg, params, calib, sharded_env(), MAIN_TARGETS,
-                            hessians=clean, device="cuda", **SHARDED_SEARCH)
-        single, single_search_s = family_of(res), res.stage_seconds["search"]
-        del res
-        torch.cuda.synchronize()
-        seconds["parent"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
+        # the ranks start at once; the parent writes what they read
+        # (renamed into place whole) and runs the references of (d) and
+        # (f) beside them
         script = f"ROOT = {ROOT!r}\nWORK = {work!r}\n" + SHARDED_SCRIPT
-        ranks = run_ranks(script, SHARDED_RANKS, device="cuda",
-                          timeout=SHARDED_TIMEOUT)
+        box = {}
+
+        def launch():
+            try:
+                box["ranks"] = run_ranks(script, SHARDED_RANKS,
+                                         device="cuda",
+                                         timeout=SHARDED_TIMEOUT)
+            except BaseException as e:  # raised again below
+                box["error"] = e
+
+        thread = threading.Thread(target=launch, daemon=True)
+        thread.start()
+        try:
+            clean = collect_hessians(cfg, params, calib, device="cuda")
+            path = os.path.join(work, "hessians.npz")
+            with open(path + ".tmp", "wb") as f:
+                np.savez(f, **{k: h.cpu().numpy() for k, h in clean.items()})
+            os.replace(path + ".tmp", path)
+            path = os.path.join(work, "phase4_db.json")
+            with open(path + ".tmp", "w") as f:
+                json.dump(db_digests(db), f)
+            os.replace(path + ".tmp", path)
+            leaves = leaf_digests(params, calib)
+            torch.cuda.synchronize()
+            seconds["parent"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            res = oneshot_prune(cfg, params, calib, sharded_env(),
+                                MAIN_TARGETS, hessians=clean, device="cuda",
+                                **SHARDED_SEARCH)
+            single = family_of(res)
+            single_search_s = res.stage_seconds["search"]
+            del res
+            torch.cuda.synchronize()
+            seconds["parent_d"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            one = single_process_trainer(torch, cfg, params, work)
+            seconds["parent_f"] = time.perf_counter() - t1
+        finally:
+            thread.join()
+        if "error" in box:
+            raise box["error"]
+        ranks = box["ranks"]
         seconds["ranks"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -4779,6 +5284,7 @@ def run_sharded_path(torch, cfg, params, calib, db):
                   "demotions": {"spdy.batched_eval": 1}},
               f"sharded (e) rank {rank}: the demotion went wrong "
               f"({r['e_counts']}, {r['e_scoring']})")
+    check_mesh_parts(ranks, one)
     scored = sum(n for r in ranks for n in r["d_scoring"]["scored"].values())
     gathers = {r["d_scoring"]["all_gathers"] for r in ranks}
     check(scored == n_evals and len(gathers) == 1 and min(gathers) >= 1,

@@ -24,6 +24,17 @@ tensors; ``None`` leaves are skipped. It is stored flat, one npz entry per
 tensor under its path (``"a/b/c"``, the reference's keys for dict trees),
 as host arrays; ``restore_pytree`` puts each back on its template leaf's
 device and dtype. bfloat16 tensors are stored as float32 (exact both ways).
+
+Ranks (``mesh=``): the mesh's first rank alone writes (its directory,
+files, manifest and retention); ``save(..., shardings=)`` first gathers
+each rank's slices into the whole tree (a collective), so a file always
+holds the whole state. ``wait`` is a barrier that also shares a failed
+write; ``latest_step`` is the first rank's answer, broadcast; and
+``restore(..., shardings=)`` gives every rank its slice of each leaf. So
+a checkpoint written by any number of ranks restores on any other
+number whose slices divide it, one process included (the reference's
+restore onto another mesh). The int8 residual rows (``(nshards,
+*shape)``) need the same number of data shards.
 """
 from __future__ import annotations
 
@@ -39,6 +50,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..distributed.sharding import gather_tree, shard_of
 from ..robustness import faults
 from ..robustness.healing import retry_io
 from ..robustness.integrity import file_sha256
@@ -109,15 +121,24 @@ def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
-def _unflatten(template, data, prefix: str = ""):
+def _unflatten(template, data, prefix: str = "", specs=None, mesh=None):
+    """``template``'s structure from the flat arrays ``data``; with
+    ``specs`` (a tree of specs mirroring it) each leaf is this rank's
+    slice of the stored whole."""
     if _is_leaf(template):
         if template is None:
             return None
         arr = torch.from_numpy(np.asarray(data[prefix]))
+        if specs is not None:
+            arr = shard_of(arr, specs, mesh).clone()
         return arr.to(device=template.device, dtype=template.dtype
                       ).reshape(template.shape)
-    out = {k: _unflatten(v, data, f"{prefix}/{k}" if prefix else str(k))
-           for k, v in _children(template)}
+    out = {}
+    for k, v in _children(template):
+        sub = None if specs is None else (
+            specs[k] if isinstance(specs, dict) else getattr(specs, k))
+        out[k] = _unflatten(v, data, f"{prefix}/{k}" if prefix else str(k),
+                            sub, mesh)
     return out if isinstance(template, dict) else type(template)(**out)
 
 
@@ -158,11 +179,13 @@ def save_pytree(tree, path: str) -> str:
     return atomic_save_npz(path, _flatten(tree))
 
 
-def restore_pytree(template, path: str):
+def restore_pytree(template, path: str, shardings=None, mesh=None):
     """Restore into ``template``'s structure, each leaf on its template
-    leaf's device and dtype."""
+    leaf's device and dtype; with ``shardings`` (a spec tree mirroring
+    it, on ``mesh``) each leaf is this rank's slice of the stored
+    whole."""
     with np.load(path) as data:
-        return _unflatten(template, data)
+        return _unflatten(template, data, specs=shardings, mesh=mesh)
 
 
 class CheckpointManager:
@@ -174,15 +197,19 @@ class CheckpointManager:
     """
 
     def __init__(self, directory: str, keep: int = 3,
-                 async_save: bool = True, max_queue: int = 8):
+                 async_save: bool = True, max_queue: int = 8, mesh=None):
         self.dir = directory
         self.keep = keep
-        os.makedirs(directory, exist_ok=True)
+        self.mesh = mesh
+        # with ranks, the first one alone writes
+        self.writer = mesh is None or mesh.index() == 0
+        if self.writer:
+            os.makedirs(directory, exist_ok=True)
         self._q: "queue.Queue" = queue.Queue(maxsize=max_queue)
         self._async = async_save
         self._worker: Optional[threading.Thread] = None
         self._errors: list = []
-        if async_save:
+        if async_save and self.writer:
             self._worker = threading.Thread(target=self._drain, daemon=True)
             self._worker.start()
 
@@ -192,7 +219,15 @@ class CheckpointManager:
     def _manifest_path(self) -> str:
         return os.path.join(self.dir, "manifest.json")
 
-    def save(self, step: int, tree, blocking: bool = False):
+    def save(self, step: int, tree, blocking: bool = False,
+             shardings=None):
+        """Checkpoint ``tree`` at ``step``; with ``shardings`` (its spec
+        tree) ``tree`` is this rank's slices, gathered whole first (every
+        rank of the mesh calls it)."""
+        if shardings is not None:
+            tree = gather_tree(tree, shardings, self.mesh)
+        if not self.writer:
+            return
         host = _flatten(tree)  # the device->host copy happens here
         if self._async and not blocking:
             self._q.put(("ckpt", step, host))
@@ -204,7 +239,10 @@ class CheckpointManager:
         async write to ``path`` through the ``db.artifact_write`` fault
         site (the family engine's stage artifacts stream through here). The caller
         records the sha256 of ``data`` before enqueueing; a write that
-        fails after bounded retries surfaces from ``wait()``/``close()``."""
+        fails after bounded retries surfaces from ``wait()``/``close()``.
+        A rank other than the writer writes nothing."""
+        if not self.writer:
+            return
         if self._async:
             self._q.put(("blob", path, data))
         else:
@@ -268,8 +306,13 @@ class CheckpointManager:
         item, after its ``os.replace``, so ``latest_step()`` after
         ``wait()`` sees the newest checkpoint. Errors are drained on
         raise, so a caller that handles the failure can keep using the
-        manager."""
+        manager. With ranks it is a barrier: every rank returns once the
+        writer's queue is on disk, and raises if the writer's failed."""
         self._q.join()
+        if self.mesh is not None and self.mesh.any(bool(self._errors)) \
+                and not self._errors:
+            raise CheckpointWriteError(
+                [RuntimeError("a checkpoint write of the first rank failed")])
         self._raise_pending_errors()
 
     def _raise_pending_errors(self):
@@ -278,18 +321,31 @@ class CheckpointManager:
             raise CheckpointWriteError(errs)
 
     def latest_step(self) -> Optional[int]:
-        """The newest step whose file matches its recorded sha256."""
+        """The newest step whose file matches its recorded sha256 (with
+        ranks, the writer's answer on every rank)."""
+        if self.mesh is not None:
+            return self.mesh.broadcast_object(
+                self._latest_step() if self.writer else None)
+        return self._latest_step()
+
+    def _latest_step(self) -> Optional[int]:
         for c in reversed(self._read_manifest().get("checkpoints", [])):
             path = os.path.join(self.dir, c["file"])
             if os.path.exists(path) and file_sha256(path) == c["sha256"]:
                 return c["step"]
         return None
 
-    def restore(self, template, step: Optional[int] = None):
+    def restore(self, template, step: Optional[int] = None,
+                shardings=None):
+        """The checkpoint at ``step`` (the latest valid one by default;
+        None if there is none) in ``template``'s structure; with
+        ``shardings``, this rank's slices (``template`` holds slices
+        too)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
-        return restore_pytree(template, self._ckpt_path(step))
+        return restore_pytree(template, self._ckpt_path(step), shardings,
+                              self.mesh)
 
     def close(self):
         if self._worker is not None:

@@ -15,8 +15,9 @@ mixture-of-experts stacks and Mamba-2 (SSD) stacks; ``models.transformer``
 rejects the families it does not run yet.
 
 ``ShapeConfig`` and ``LM_SHAPES`` are the reference's input-shape cells,
-which ``configs.shapes_for`` assigns to an architecture. ``TrainConfig``
-is the reference's trainer configuration, field for field.
+which ``configs.shapes_for`` assigns to an architecture. ``MeshConfig``
+is the reference's mesh and sharding-profile configuration, and
+``TrainConfig`` its trainer configuration, field for field.
 """
 from __future__ import annotations
 
@@ -180,6 +181,42 @@ LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
 
 LM_SHAPES: Tuple[ShapeConfig, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K,
                                       LONG_500K)
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """A mesh's shape and axis names, and the sharding profile's knobs
+    (``distributed.sharding.logical_to_pspec``): ``fsdp`` shards params,
+    grads and the optimizer state over the data axes too (ZeRO-3);
+    ``seq_shard_kv`` shards a decode cache's sequence over ``"model"``;
+    ``profile`` is ``"tp_fsdp"`` (tensor parallelism over ``"model"``
+    plus FSDP) or ``"pure_fsdp"`` (no tensor parallelism: small models).
+    ``donate`` is kept for parity with the reference, where it donates
+    the train state's buffers to the jitted step; the port's step builds
+    new tensors and has nothing to donate, so it reads no field of it."""
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+    fsdp: bool = True
+    seq_shard_kv: bool = True
+    donate: bool = True
+    profile: str = "tp_fsdp"     # tp_fsdp | pure_fsdp
+
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        if self.profile == "pure_fsdp":
+            return tuple(self.axes)  # the batch spans the whole mesh
+        return tuple(a for a in self.axes if a in ("pod", "data"))
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+SINGLE_POD = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD = MeshConfig((2, 16, 16), ("pod", "data", "model"))
 
 
 @dataclass(frozen=True)

@@ -110,9 +110,27 @@ Every artifact write goes through the ``db.artifact_write`` fault site
 and the ``corrupt`` mode flips bytes after the write, so the sha256 in
 the manifest catches the file on its next load and the stage runs again.
 
-Not ported yet: the mesh arguments (``mesh``, ``data_axes``, ``mc``,
-``specs``), which need the mesh trainer (ROADMAP Queue 1 item 6c) and
-raise ``NotImplementedError``.
+Ranks
+-----
+``mesh`` (a ``distributed.Mesh``, or the installed activation context's)
+runs the family on every rank of the mesh, each rank calling
+``gradual_prune`` with the same arguments: the per-target calibration
+and database shard over the ranks (``collect_hessians`` and
+``build_database`` with ``mesh=``), the first rank builds the latency
+table and broadcasts it, and each target's search is placed over the
+ranks (``search(mesh=)``, one target: the first rank scores it and
+shares the scores). With ``specs`` (``models.model_specs``) the finetune
+is the mesh trainer (``Trainer(mesh=, mc=, specs=)``: FSDP slices,
+``int8_ef`` if ``tcfg`` asks for it); without them each rank runs the
+same single-process finetune (the reference's calibration-only
+sharding). The first rank alone writes into the run directory: the
+manifest, every artifact and the trainer's checkpoints. Every decision
+to read an artifact is the first rank's (it checks the sha256 and
+quarantines), shared before any other rank reads, so all ranks take the
+same path through the stages and their collectives, and a resume works
+on every rank. The other ranks keep the manifest in memory without the
+artifacts' digests and read the first rank's on the next call; every
+rank returns the same variants.
 
 One deliberate difference from the JAX package: a variant's ``pruned``
 model is shrunk from its finetuned params (``shrink_from_stitched``). The
@@ -147,12 +165,13 @@ from ..optim.adamw import tree_leaves, tree_map
 from ..robustness import faults
 from ..robustness.healing import retry_io
 from ..robustness.integrity import checked_npz_load, quarantine_file
+from ..distributed.sharding import mesh_config_for
 from ..robustness.report import RobustnessReport, report_scope
 from ..runtime.device import DeviceLike, resolve_device, to_host
 from ..train.trainer import Trainer
 from .database import (ModuleDB, SnapshotCache, apply_assignment,
                        build_database)
-from .hessian import collect_hessians
+from .hessian import collect_hessians, resolve_mesh
 from .latency import build_table
 from .oneshot import calib_loss_fn, make_batched_eval
 from .shrink import shrink_from_stitched
@@ -268,13 +287,22 @@ class FamilyRunState:
 
     FILE = "family.json"
 
-    def __init__(self, run_dir: str, header: Dict):
+    def __init__(self, run_dir: str, header: Dict, mesh=None):
         self.path = os.path.join(run_dir, self.FILE)
+        # with ranks, the first reads and writes the file; every rank
+        # keeps the same document in memory
+        self.writer = mesh is None or mesh.index() == 0
         # the overlapped schedule records from two threads (the stage loop
         # and the export tail); atomic_write_json's tmp name is only
         # pid-unique, so mutating and saving the manifest serialize here
         self._lock = threading.RLock()
-        doc = load_json(self.path)
+        doc = load_json(self.path) if self.writer else None
+        if mesh is not None:  # the first rank's document and header
+            doc, first = mesh.broadcast_object((doc, header))
+            if first != header:
+                raise ValueError(
+                    f"the ranks of one family differ in their inputs: "
+                    f"header {header} against the first rank's {first}")
         if doc is not None and doc.get("header") != header:
             raise ValueError(
                 f"family manifest at {self.path} belongs to a different "
@@ -289,6 +317,8 @@ class FamilyRunState:
         self._save()
 
     def _save(self):
+        if not self.writer:
+            return
         with self._lock:
             atomic_write_json(self.path, self.doc)
 
@@ -351,7 +381,8 @@ def _save_artifact(path: str, arrays: Dict[str, np.ndarray]) -> str:
 
 
 def _stream_artifact(mgr: CheckpointManager, path: str,
-                     arrays: Dict[str, np.ndarray]) -> str:
+                     arrays: Callable[[], Dict[str, np.ndarray]]
+                     ) -> Optional[str]:
     """Streaming twin of `_save_artifact`: serialize and hash on the
     caller's thread, enqueue the bytes on the manager's bounded queue,
     return the digest at once. npz serialization is deterministic, so the
@@ -359,8 +390,12 @@ def _stream_artifact(mgr: CheckpointManager, path: str,
     bytes the worker later writes, through the same ``db.artifact_write``
     site as ``_save_artifact``; a write that fails after its retries
     surfaces at ``mgr.wait()``, which every preemption point and the end
-    of the run call before reporting stages durable."""
-    data, sha = npz_bytes(arrays)
+    of the run call before reporting stages durable. ``arrays`` is
+    called only on the writing rank; another rank writes nothing and
+    gets None."""
+    if not mgr.writer:
+        return None
+    data, sha = npz_bytes(arrays())
     mgr.submit_blob(path, data)
     return sha
 
@@ -377,11 +412,30 @@ def _save_hessians(path: str, hessians: Dict[str, torch.Tensor]) -> str:
     return _save_artifact(path, _hessian_arrays(hessians))
 
 
-def _load_hessians(path: str, expected_sha: Optional[str] = None
-                   ) -> Optional[Dict[str, torch.Tensor]]:
+def _checked_load(path: str, expected_sha: Optional[str], mesh=None
+                  ) -> Optional[Dict[str, np.ndarray]]:
+    """``checked_npz_load`` at the ``db.artifact_write`` site, agreed
+    across the ranks of ``mesh``: the first rank checks the file (and
+    quarantines it on a mismatch) before any other rank reads it, and a
+    file that fails on any rank is a miss on every rank."""
+    if mesh is None:
+        return checked_npz_load(path, expected_sha, site="db.artifact_write")
+    first = mesh.index() == 0
+    data = (checked_npz_load(path, expected_sha, site="db.artifact_write")
+            if first else None)
+    if mesh.any(first and data is None):
+        return None
+    if not first:
+        data = checked_npz_load(path, expected_sha, site="db.artifact_write",
+                                quarantine=False)
+    return None if mesh.any(data is None) else data
+
+
+def _load_hessians(path: str, expected_sha: Optional[str] = None,
+                   mesh=None) -> Optional[Dict[str, torch.Tensor]]:
     """Host tensors (``build_database`` moves them to its device), or
     None on a miss or a quarantined file."""
-    data = checked_npz_load(path, expected_sha, site="db.artifact_write")
+    data = _checked_load(path, expected_sha, mesh)
     if data is None:
         return None
     return {k: torch.from_numpy(v) for k, v in data.items()}
@@ -405,9 +459,9 @@ def _save_db(path: str, db: Dict[str, ModuleDB]) -> str:
     return _save_artifact(path, _db_arrays(db))
 
 
-def _load_db(cfg, path: str, expected_sha: Optional[str] = None
-             ) -> Optional[Dict[str, ModuleDB]]:
-    data = checked_npz_load(path, expected_sha, site="db.artifact_write")
+def _load_db(cfg, path: str, expected_sha: Optional[str] = None,
+             mesh=None) -> Optional[Dict[str, ModuleDB]]:
+    data = _checked_load(path, expected_sha, mesh)
     if data is None:
         return None
     present = {k.split("::")[0] for k in data}
@@ -524,15 +578,21 @@ def gradual_prune(cfg, params, env, targets: Sequence[float],
     resumed run reads the same one, so a measured-table family resumes
     bit for bit, as a cost-model one does. The cache's location is not
     part of the resume header; the other latency arguments are.
+
+    ``mesh`` (or the installed activation context's), ``data_axes``,
+    ``mc`` and ``specs``: the family over the ranks of a mesh (module
+    docstring, "Ranks"); every rank calls ``gradual_prune`` with the same
+    arguments and gets the same variants.
     """
     refuse_cross_attention(cfg, "gradual_prune (each target exports a "
                            "shrunk model)")
     dev = resolve_device(device)
-    if any(a is not None for a in (mesh, data_axes, mc, specs)):
-        raise NotImplementedError(
-            "gradual_prune(mesh=, data_axes=, mc=, specs=): the mesh "
-            "trainer and the family engine's writes from several ranks are "
-            "not ported yet (ROADMAP Queue 1 item 6c)")
+    mesh, data_axes = resolve_mesh(mesh, data_axes)
+    if mesh is None and (mc is not None or specs is not None):
+        raise ValueError("gradual_prune(mc=, specs=) configure the mesh "
+                         "trainer and need a mesh")
+    if mesh is not None and specs is not None and mc is None:
+        mc = mesh_config_for(mesh)
     tcfg = tcfg or gradual_train_config(finetune_steps)
     if stop_after is not None:
         if stop_after[1] not in ("hessians", "db", "search", "finetune"):
@@ -546,7 +606,7 @@ def gradual_prune(cfg, params, env, targets: Sequence[float],
     params = tree_to(params, dev)
     calib_batches = [tree_to(b, dev) for b in calib_batches]
     run_dir = family_run_dir(cfg, targets, seed, base=ckpt_dir)
-    if not resume:
+    if not resume and (mesh is None or mesh.index() == 0):
         shutil.rmtree(run_dir, ignore_errors=True)
     lat_kw = {k: repr(v) for k, v in sorted((latency_kw or {}).items())
               if k != "cache_dir"}  # the cache's location changes no result
@@ -565,7 +625,7 @@ def gradual_prune(cfg, params, env, targets: Sequence[float],
                          "env": repr(env),
                          "tcfg": dataclasses.asdict(tcfg),
                          "latency": [latency_backend, lat_kw]}}
-    frs = FamilyRunState(run_dir, header)
+    frs = FamilyRunState(run_dir, header, mesh=mesh)
     rep = report if report is not None else RobustnessReport()
     try:
         with report_scope(rep):
@@ -574,7 +634,8 @@ def gradual_prune(cfg, params, env, targets: Sequence[float],
                 finetune_steps=finetune_steps, search_steps=search_steps,
                 search_pop=search_pop, search_batched=search_batched,
                 latency_backend=latency_backend,
-                latency_kw=latency_kw, ckpt_every=ckpt_every, seed=seed,
+                latency_kw=latency_kw, mesh=mesh, data_axes=data_axes,
+                mc=mc, specs=specs, ckpt_every=ckpt_every, seed=seed,
                 stop_after=stop_after, overlap=overlap,
                 keep_checkpoints=keep_checkpoints, verbose=verbose,
                 run_dir=run_dir, frs=frs, dev=dev)
@@ -587,22 +648,27 @@ def gradual_prune(cfg, params, env, targets: Sequence[float],
 
 def _family_engine(cfg, params, env, targets, data, calib_batches, *, tcfg,
                    finetune_steps, search_steps, search_pop, search_batched,
-                   latency_backend, latency_kw, ckpt_every, seed,
-                   stop_after, overlap, keep_checkpoints, verbose, run_dir,
-                   frs, dev) -> List[GradualVariant]:
+                   latency_backend, latency_kw, mesh, data_axes, mc, specs,
+                   ckpt_every, seed, stop_after, overlap, keep_checkpoints,
+                   verbose, run_dir, frs, dev) -> List[GradualVariant]:
     """The family loop proper, run under an installed report scope
     (``gradual_prune`` is the argument-checking, manifest-owning
     wrapper)."""
     teacher = params  # the dense teacher; nothing writes its tensors
-    table = build_table(cfg, env, backend=latency_backend, device=dev,
-                        **(latency_kw or {}))
+    first = mesh is None or mesh.index() == 0  # the writing rank
+    table = None
+    if first:
+        table = build_table(cfg, env, backend=latency_backend, device=dev,
+                            **(latency_kw or {}))
+    if mesh is not None:
+        table = mesh.broadcast_object(table)
     loss_eval = calib_loss_fn(cfg, calib_batches[:1], device=dev)
 
     # the artifact stream: hessians/db/params npz bytes are serialized
     # and hashed on the producing thread, then written by the manager's
     # worker (bounded queue: backpressure); _barrier() is the only place
     # that declares them durable
-    mgr = CheckpointManager(run_dir, async_save=True)
+    mgr = CheckpointManager(run_dir, async_save=True, mesh=mesh)
     exports: List[threading.Thread] = []   # at most one in flight
     export_err: List[BaseException] = []
 
@@ -643,27 +709,31 @@ def _family_engine(cfg, params, env, targets, data, calib_batches, *, tcfg,
         stay unloaded when the database artifact is valid."""
         dpath = os.path.join(tdir, "db.npz")
         if frs.stage_done(tkey, "db"):
-            db = _load_db(cfg, dpath, expected_sha=entry.get("db_sha256"))
+            db = _load_db(cfg, dpath, expected_sha=entry.get("db_sha256"),
+                          mesh=mesh)
             if db is not None:
                 return db
         hpath = os.path.join(tdir, "hessians.npz")
         hessians = None
         if frs.stage_done(tkey, "hessians"):
             hessians = _load_hessians(
-                hpath, expected_sha=entry.get("hessians_sha256"))
+                hpath, expected_sha=entry.get("hessians_sha256"), mesh=mesh)
         if hessians is None:
             t0 = time.perf_counter()
             hessians = collect_hessians(cfg, current, calib_batches,
+                                        mesh=mesh, data_axes=data_axes,
                                         device=dev)
-            hsha = _stream_artifact(mgr, hpath, _hessian_arrays(hessians))
+            hsha = _stream_artifact(mgr, hpath,
+                                    lambda: _hessian_arrays(hessians))
             stage_t["hessians"] = time.perf_counter() - t0
             frs.record(tkey, "hessians", hessians_sha256=hsha,
                        stage_times=dict(stage_t))
             preempt_at(i, "hessians")
         t0 = time.perf_counter()
-        db = build_database(cfg, current, hessians, device=dev)
+        db = build_database(cfg, current, hessians, mesh=mesh,
+                            shard_axes=data_axes, device=dev)
         del hessians
-        dsha = _stream_artifact(mgr, dpath, _db_arrays(db))
+        dsha = _stream_artifact(mgr, dpath, lambda: _db_arrays(db))
         stage_t["db"] = time.perf_counter() - t0
         frs.record(tkey, "db", db_sha256=dsha, stage_times=dict(stage_t))
         preempt_at(i, "db")
@@ -679,8 +749,10 @@ def _family_engine(cfg, params, env, targets, data, calib_batches, *, tcfg,
         the same bits under either deterministic-algorithms setting."""
         t0 = time.perf_counter()
         loss_after = loss_eval(cur)
-        data_b, psha = npz_bytes(_flatten(cur))
-        mgr.submit_blob(os.path.join(tdir, "params.npz"), data_b)
+        psha = None
+        if first:
+            data_b, psha = npz_bytes(_flatten(cur))
+            mgr.submit_blob(os.path.join(tdir, "params.npz"), data_b)
         pm = shrink_from_stitched(cfg, cur, db, res.assignment)
         stage_t["export"] = time.perf_counter() - t0
         frs.record(tkey, "done", executed=False, loss_after_ft=loss_after,
@@ -714,7 +786,16 @@ def _family_engine(cfg, params, env, targets, data, calib_batches, *, tcfg,
                 # completion), so this path never restores optimizer state
                 ppath = os.path.join(tdir, "params.npz")
                 want = entry.get("params_sha256")
-                if not os.path.exists(ppath):
+                # the first rank's reading of the file, on every rank
+                state_of_file = None
+                if first:
+                    state_of_file = (
+                        "missing" if not os.path.exists(ppath) else
+                        "corrupt" if want is not None
+                        and file_sha256(ppath) != want else "ok")
+                if mesh is not None:
+                    state_of_file = mesh.broadcast_object(state_of_file)
+                if state_of_file == "missing":
                     # a kill can outrun the params stream: "done" was
                     # recorded while params.npz died in the write queue.
                     # Roll back to "search": the recorded search result and
@@ -722,10 +803,11 @@ def _family_engine(cfg, params, env, targets, data, calib_batches, *, tcfg,
                     # directly, because record() never moves back)
                     entry["stage"] = "search"
                     frs._save()
-                elif want is not None and file_sha256(ppath) != want:
+                elif state_of_file == "corrupt":
                     # the final params rotted on disk: quarantine, and the
                     # same rollback to "search"
-                    quarantine_file(ppath, site="db.artifact_write")
+                    if first:
+                        quarantine_file(ppath, site="db.artifact_write")
                     entry["stage"] = "search"
                     frs._save()
                 else:
@@ -760,7 +842,7 @@ def _family_engine(cfg, params, env, targets, data, calib_batches, *, tcfg,
                 t0 = time.perf_counter()
                 res = search(db, table, target, steps=search_steps,
                              pop=search_pop, batched=search_batched,
-                             seed=seeds[i],
+                             seed=seeds[i], mesh=mesh,
                              eval_fn=lambda a: loss_eval(
                                  cache.apply(current, a)),
                              eval_batched=make_batched_eval(
@@ -780,11 +862,16 @@ def _family_engine(cfg, params, env, targets, data, calib_batches, *, tcfg,
             t0 = time.perf_counter()
             # the step keeps only the masks' leaves with a zero; the full
             # tree of ones is not held through the finetune
+            # the mesh trainer with specs; without them each rank runs the
+            # single-process finetune, the first alone checkpointing
+            use_mesh = mesh if specs is not None else None
             trainer = Trainer(cfg, tcfg, ckpt_dir=os.path.join(tdir, "ckpt"),
                               teacher_params=teacher,
                               masks=masks_from_assignment(
                                   cfg, masked, db, res.assignment),
-                              ckpt_every=ckpt_every, device=dev)
+                              ckpt_every=ckpt_every, device=dev,
+                              mesh=use_mesh, mc=mc, specs=specs,
+                              ckpt_mesh=mesh)
             try:
                 state = trainer.init_or_restore(masked)
                 start = int(state.step)
@@ -810,9 +897,9 @@ def _family_engine(cfg, params, env, targets, data, calib_batches, *, tcfg,
                 raise FamilyPreempted(
                     f"preempted mid-finetune of target {target} at step "
                     f"{int(state.step)} (run dir {run_dir})")
-            current = state.params
+            current = trainer.params_of(state)
             del state, masked, trainer
-            if not keep_checkpoints:
+            if not keep_checkpoints and first:
                 shutil.rmtree(os.path.join(tdir, "ckpt"))
             stage_t["finetune"] = time.perf_counter() - t0
 

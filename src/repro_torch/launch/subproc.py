@@ -125,11 +125,13 @@ def _kill(procs) -> None:
         p.wait()
 
 
-def init_rank(timeout: float = 300):
+def init_rank(timeout: float = 300, device=None):
     """The rank side of :func:`run_ranks`: one CPU thread, the gloo
     process group (its collectives time out after ``timeout`` seconds),
-    and the rank's device. Returns ``(rank, world_size, device)``; a
-    ``"cuda"`` rank on a machine without a GPU raises."""
+    and the rank's device (``device``, else ``$ZIPLM_RANK_DEVICE``).
+    Returns ``(rank, world_size, device)``; a ``"cuda"`` rank on a
+    machine without a GPU raises. Without ``$ZIPLM_RENDEZVOUS`` (a rank
+    that ``torchrun`` started) the group meets at ``env://``."""
     import torch
     import torch.distributed as dist
 
@@ -137,9 +139,11 @@ def init_rank(timeout: float = 300):
 
     torch.set_num_threads(1)
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-    device = resolve_device(os.environ.get("ZIPLM_RANK_DEVICE"))
+    device = resolve_device(device if device is not None
+                            else os.environ.get("ZIPLM_RANK_DEVICE"))
+    where = os.environ.get("ZIPLM_RENDEZVOUS")
     dist.init_process_group(
-        "gloo", init_method="file://" + os.environ["ZIPLM_RENDEZVOUS"],
+        "gloo", init_method="file://" + where if where else "env://",
         rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=timeout))
     return rank, world, device

@@ -146,6 +146,152 @@ def model_init(cfg, generator: Optional[torch.Generator] = None,
     return tree_to(params, dev)
 
 
+# ----------------------------------------------------------------------
+# the parameters' layout: shapes and logical axis names
+# ----------------------------------------------------------------------
+# Each leaf is a (shape, spec) pair: its shape and, one per dim, the
+# logical axis name that ``distributed.sharding.logical_to_pspec`` maps
+# to mesh axes, as the reference's ``model_init`` returns them beside its
+# params. The functions follow the reference's ``*_init`` functions leaf
+# for leaf.
+
+def _norm_layout(cfg, nlayers: int = 0):
+    shape = (nlayers, cfg.d_model) if nlayers else (cfg.d_model,)
+    spec = ("layers", None) if nlayers else (None,)
+    out = {"scale": (shape, spec)}
+    if cfg.norm == "layernorm":
+        out["bias"] = (shape, spec)
+    return out
+
+
+def _attention_layout(cfg, nlayers: int, cross: bool = False):
+    d, dh = cfg.d_model, cfg.resolved_head_dim
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    pfx, spfx = (nlayers,), ("layers",)
+    out = {"wq": (pfx + (d, hq * dh), spfx + ("embed", "heads")),
+           "wk": (pfx + (d, hkv * dh), spfx + ("embed", "kv")),
+           "wv": (pfx + (d, hkv * dh), spfx + ("embed", "kv")),
+           "wo": (pfx + (hq * dh, d), spfx + ("heads", "embed"))}
+    if cfg.qkv_bias:
+        out["bq"] = (pfx + (hq * dh,), spfx + ("heads",))
+        out["bk"] = (pfx + (hkv * dh,), spfx + ("kv",))
+        out["bv"] = (pfx + (hkv * dh,), spfx + ("kv",))
+    if cross:
+        out["gate"] = (pfx, spfx)
+    return out
+
+
+def _ffn_layout(cfg, nlayers: int):
+    d, f = cfg.d_model, cfg.d_ff
+    pfx, spfx = (nlayers,), ("layers",)
+    if cfg.ffn_activation == "swiglu":
+        return {"wg": (pfx + (d, f), spfx + ("embed", "mlp")),
+                "wu": (pfx + (d, f), spfx + ("embed", "mlp")),
+                "wd": (pfx + (f, d), spfx + ("mlp", "embed"))}
+    return {"wi": (pfx + (d, f), spfx + ("embed", "mlp")),
+            "bi": (pfx + (f,), spfx + ("mlp",)),
+            "wd": (pfx + (f, d), spfx + ("mlp", "embed")),
+            "bd": (pfx + (d,), spfx + ("embed",))}
+
+
+def _moe_layout(cfg, nlayers: int):
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    pfx, spfx = (nlayers,), ("layers",)
+    return {"router": (pfx + (d, e), spfx + ("embed", None)),
+            "wg": (pfx + (e, d, f), spfx + ("experts", "embed",
+                                               "mlp_noshard")),
+            "wu": (pfx + (e, d, f), spfx + ("experts", "embed",
+                                               "mlp_noshard")),
+            "wd": (pfx + (e, f, d), spfx + ("experts", "mlp_noshard",
+                                               "embed"))}
+
+
+def _ssm_layout(cfg, nlayers: int):
+    d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    h, k = cfg.ssm_heads, cfg.ssm_conv
+    pfx, spfx = (nlayers,), ("layers",)
+    return {"in_z": (pfx + (d, di), spfx + ("embed", "ssm")),
+            "in_x": (pfx + (d, di), spfx + ("embed", "ssm")),
+            "in_bc": (pfx + (d, 2 * n), spfx + ("embed", None)),
+            "in_dt": (pfx + (d, h), spfx + ("embed", "ssm_heads")),
+            "conv_x": (pfx + (k, di), spfx + (None, "ssm")),
+            "conv_x_b": (pfx + (di,), spfx + ("ssm",)),
+            "conv_bc": (pfx + (k, 2 * n), spfx + (None, None)),
+            "conv_bc_b": (pfx + (2 * n,), spfx + (None,)),
+            "A_log": (pfx + (h,), spfx + ("ssm_heads",)),
+            "D": (pfx + (h,), spfx + ("ssm_heads",)),
+            "dt_bias": (pfx + (h,), spfx + ("ssm_heads",)),
+            "norm": (pfx + (di,), spfx + ("ssm",)),
+            "out_proj": (pfx + (di, d), spfx + ("ssm", "embed"))}
+
+
+def _block_layout(cfg, nlayers: int, kind: str):
+    if kind == "ssm":
+        return {"ln1": _norm_layout(cfg, nlayers),
+                "ssm": _ssm_layout(cfg, nlayers)}
+    out = {"ln1": _norm_layout(cfg, nlayers),
+           "attn": _attention_layout(cfg, nlayers),
+           "ln2": _norm_layout(cfg, nlayers)}
+    if cfg.num_experts:
+        out["moe"] = _moe_layout(cfg, nlayers)
+    else:
+        out["ffn"] = _ffn_layout(cfg, nlayers)
+    if kind == "hybrid":
+        out["ssm"] = _ssm_layout(cfg, nlayers)
+    if kind == "decoder":
+        out["lnx"] = _norm_layout(cfg, nlayers)
+        out["xattn"] = _attention_layout(cfg, nlayers, cross=True)
+    return out
+
+
+def _model_layout(cfg) -> Dict[str, Any]:
+    embed = {"table": ((cfg.vocab_size, cfg.d_model), ("vocab", "embed"))}
+    if cfg.pos_emb == "learned":
+        embed["pos"] = ((cfg.max_position, cfg.d_model), (None, "embed"))
+    out: Dict[str, Any] = {
+        "embed": embed,
+        "layers": _block_layout(cfg, cfg.num_layers, block_kind(cfg)),
+        "final_norm": _norm_layout(cfg),
+        "head": ({} if cfg.tie_embeddings else
+                 {"w": ((cfg.vocab_size, cfg.d_model), ("vocab", "embed"))}),
+    }
+    if cfg.encoder_decoder:
+        out["enc_layers"] = _block_layout(
+            _encoder_cfg(cfg), cfg.num_encoder_layers, "self")
+        out["enc_norm"] = _norm_layout(cfg)
+        out["enc_pos"] = ((cfg.num_frontend_tokens, cfg.d_model),
+                          (None, "embed"))
+    G = cross_groups(cfg)
+    if G:
+        out["cross"] = {"lnx": _norm_layout(cfg, G),
+                        "xattn": _attention_layout(cfg, G, cross=True)}
+        if cfg.frontend_dim and cfg.frontend_dim != cfg.d_model:
+            out["frontend_proj"] = ((cfg.frontend_dim, cfg.d_model),
+                                    (None, "embed"))
+    return out
+
+
+def _layout_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _layout_map(fn, v) for k, v in tree.items()}
+    return fn(*tree)
+
+
+def model_specs(cfg) -> Dict[str, Any]:
+    """The logical axis names of ``model_init(cfg)``'s params: a tree of
+    its structure whose leaves are tuples, one name (or None) per dim,
+    the tree that the reference's ``model_init`` returns as its second
+    value. ``distributed.sharding.param_shardings`` maps it onto a
+    mesh."""
+    return _layout_map(lambda shape, spec: spec, _model_layout(cfg))
+
+
+def param_shapes(cfg) -> Dict[str, Any]:
+    """The shapes of ``model_init(cfg)``'s params, without drawing them
+    (a tree of tuples)."""
+    return _layout_map(lambda shape, spec: tuple(shape), _model_layout(cfg))
+
+
 def tree_to(tree, device, dtype=None):
     """Move (and optionally cast) every tensor of a nested dict (or of a
     named tuple of them, such as a ``TrainState``; ``None`` stays)."""

@@ -44,22 +44,26 @@ def quarantine_file(path: str, site: str = "artifact") -> Optional[str]:
 
 
 def checked_npz_load(path: str, expected_sha: Optional[str] = None,
-                     site: str = "artifact") -> Optional[Dict]:
+                     site: str = "artifact", quarantine: bool = True
+                     ) -> Optional[Dict]:
     """Load an ``.npz`` artifact with integrity checks.
 
     Returns ``{name: np.ndarray}`` fully read, or None when the file is
     missing (a plain miss, no quarantine), its sha256 does not match
     ``expected_sha``, or it fails to parse; the latter two quarantine the
-    file. ``expected_sha=None`` skips the hash check but still catches an
+    file unless ``quarantine=False`` (a reader that must not write).
+    ``expected_sha=None`` skips the hash check but still catches an
     unparseable file."""
     if not os.path.exists(path):
         return None
     if expected_sha is not None and file_sha256(path) != expected_sha:
-        quarantine_file(path, site=site)
+        if quarantine:
+            quarantine_file(path, site=site)
         return None
     try:
         with np.load(path) as data:
             return {k: np.asarray(data[k]) for k in data.files}
     except Exception:  # any parse failure of the bytes: quarantine them
-        quarantine_file(path, site=site)
+        if quarantine:
+            quarantine_file(path, site=site)
         return None

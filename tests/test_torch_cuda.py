@@ -1252,3 +1252,73 @@ def test_placed_search_on_two_streams_equals_unplaced(cuda_device):
     assert sum(placed["scored"].values()) == want[targets[0]].n_evals
     assert placed["calls"] > 3
     assert list(fn.replicas) == [torch.device("cuda", 0)]
+
+
+# each rank: the reference tests' gpt2-tiny trained 12 steps on the card
+# over a 2-rank mesh, fp32 and then int8_ef, and the single-process
+# trainer on the same weights, teacher and batches (the bounds of
+# tests/test_trainer_sharded.py)
+MESH_TRAIN_CARD_SCRIPT = r"""
+import dataclasses, tempfile
+
+import torch
+
+from repro_torch.configs import GPT2_SMALL
+from repro_torch.configs.base import TrainConfig
+from repro_torch.data import synthetic_stream
+from repro_torch.distributed import make_mesh
+from repro_torch.launch.subproc import emit_result, init_rank
+from repro_torch.models import model_init, model_specs
+from repro_torch.optim.adamw import tree_leaves
+from repro_torch.train import Trainer
+
+rank, world, dev = init_rank(timeout=300)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+cfg = GPT2_SMALL.replace(name="gpt2-tiny", num_layers=2, d_model=64,
+                         d_ff=128, num_heads=4, num_kv_heads=4, head_dim=16,
+                         vocab_size=256, dtype="float32")
+params = model_init(cfg, torch.Generator().manual_seed(0), device=dev)
+teacher = model_init(cfg, torch.Generator().manual_seed(1), device=dev)
+mesh = make_mesh((world,), ("data",))
+N = 12
+tcfg = TrainConfig(learning_rate=1e-3, total_steps=N, warmup_steps=2,
+                   microbatches=2, distill_logit=1.0, distill_token=0.5)
+
+
+def run(compression, on_mesh):
+    tr = Trainer(cfg, dataclasses.replace(tcfg, grad_compression=compression),
+                 ckpt_dir=tempfile.mkdtemp(), ckpt_every=100, log_every=1,
+                 teacher_params=teacher, mesh=mesh if on_mesh else None,
+                 specs=model_specs(cfg) if on_mesh else None, device=dev)
+    st = tr.init_or_restore(params)
+    st = tr.fit(st, synthetic_stream(cfg, 8, 32, seed=3), steps=N,
+                save_last=False)
+    return tr, st
+
+
+fp, st_fp = run("none", True)
+c, st_c = run("int8_ef", True)
+one, st_1 = run("none", False)
+emit_result({
+    "fp32": [m["loss"] for m in fp.metrics_log],
+    "int8": [m["loss"] for m in c.metrics_log],
+    "single": [m["loss"] for m in one.metrics_log],
+    "kl": [m["logit_kl"] for m in fp.metrics_log],
+    "rows": sorted({int(e.shape[0]) for e in tree_leaves(st_c.ef_err)}),
+    "nonzero": any(bool((e != 0).any()) for e in tree_leaves(st_c.ef_err)),
+    "param_maxdiff": max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(fp.params_of(st_fp)), tree_leaves(st_1.params)))})
+"""
+
+
+@pytest.mark.cuda
+def test_mesh_trainer_on_the_card_matches_one_process(cuda_device):
+    for r in run_ranks(MESH_TRAIN_CARD_SCRIPT, 2, device="cuda",
+                       timeout=600):
+        assert r["param_maxdiff"] < 1e-4, r["param_maxdiff"]
+        assert r["fp32"] == pytest.approx(r["single"], abs=1e-3)
+        assert all(k > 0 for k in r["kl"])
+        assert r["rows"] == [1] and r["nonzero"]
+        assert abs(r["fp32"][-1] - r["int8"][-1]) < 0.15
+        assert r["int8"][-1] < r["int8"][0]

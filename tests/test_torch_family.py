@@ -559,12 +559,15 @@ def test_tree_digest_is_stable_and_sees_one_element():
 
 
 def test_arguments_not_ported_raise(run, tmp_path):
-    """The mesh arguments raise before the run writes anything: the mesh
-    trainer is ROADMAP Queue 1 item 6c. The serial search and the latency cache (item 4)
-    are ported: each runs through its first search (on the cost-model
-    table, which is never cached)."""
-    for kw in ({"mesh": object()}, {"specs": {}}):
-        with pytest.raises(NotImplementedError, match="item 6c"):
+    """The mesh trainer's arguments without a mesh raise before the run
+    writes anything (the mesh family runs in
+    ``test_mesh_family_on_one_rank_is_the_single_process_family`` and in
+    tests/test_torch_mesh_train.py). The serial search and the latency
+    cache (item 4) are ported: each runs through its first search (on the
+    cost-model table, which is never cached)."""
+    from repro_torch.configs.base import MeshConfig
+    for kw in ({"specs": {}}, {"mc": MeshConfig()}):
+        with pytest.raises(ValueError, match="need a mesh"):
             run(tmp_path, **kw)
     assert not any(tmp_path.iterdir())
     cache = tmp_path / "cache"
@@ -609,3 +612,35 @@ def test_search_arguments_not_ported_raise(ref_family, cfg):
                                             for a in al]))
     assert by_fn.assignment == by_batch.assignment
     assert by_fn.score == by_batch.score
+
+
+@pytest.fixture
+def one_rank_group(tmp_path):
+    """A gloo process group of this process alone (a file rendezvous in a
+    temporary directory), destroyed afterwards."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method="file://" + str(
+        tmp_path / "rendezvous"), rank=0, world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("with_specs", [False, True],
+                         ids=["calibration_only", "mesh_trainer"])
+def test_mesh_family_on_one_rank_is_the_single_process_family(
+        cfg, run, tmp_path, uninterrupted, one_rank_group, with_specs):
+    """``gradual_prune(mesh=)`` runs, here over a mesh of one rank: its
+    calibration, database, search and (with ``specs``) mesh trainer take
+    their mesh routes, and the family is the single-process family bit
+    for bit."""
+    from repro_torch.distributed import make_mesh
+    from repro_torch.models import model_specs
+    mesh = make_mesh((1,), ("data",))
+    fam = run(tmp_path, mesh=mesh,
+              **({"specs": model_specs(cfg)} if with_specs else {}))
+    _same_family(uninterrupted[1], fam)
+    man = _manifest(cfg, tmp_path)
+    want = _manifest(cfg, uninterrupted[0])
+    for t in ("1.5", "2"):
+        for k in ("hessians_sha256", "db_sha256", "params_sha256"):
+            assert man["targets"][t][k] == want["targets"][t][k], (t, k)

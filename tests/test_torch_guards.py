@@ -63,6 +63,7 @@ def _rank_scripts():
 
 RANK_SCRIPT_FILES = [ROOT / "chip_smoke.py",
                      ROOT / "tests" / "test_torch_sharded.py",
+                     ROOT / "tests" / "test_torch_mesh_train.py",
                      ROOT / "tests" / "test_torch_cuda.py"]
 RANK_SCRIPTS = dict(_rank_scripts())
 
@@ -78,11 +79,16 @@ def test_rank_scripts_import_neither_jax_nor_the_jax_package(name):
 def test_rank_scripts_are_found():
     assert {"chip_smoke.py:SHARDED_SCRIPT",
             "test_torch_cuda.py:SHARDED_CARD_SCRIPT",
+            "test_torch_cuda.py:MESH_TRAIN_CARD_SCRIPT",
             "test_torch_sharded.py:PRELUDE_SCRIPT",
             "test_torch_sharded.py:CALIB_SCRIPT",
             "test_torch_sharded.py:DB_SCRIPT",
             "test_torch_sharded.py:MESH_SCRIPT",
-            "test_torch_sharded.py:HANG_SCRIPT"} <= set(RANK_SCRIPTS)
+            "test_torch_sharded.py:HANG_SCRIPT",
+            "test_torch_mesh_train.py:PRELUDE_SCRIPT",
+            "test_torch_mesh_train.py:TRAIN_SCRIPT",
+            "test_torch_mesh_train.py:FAMILY_SCRIPT",
+            "test_torch_mesh_train.py:CLI_SCRIPT"} <= set(RANK_SCRIPTS)
 
 
 def test_port_files_are_found():
@@ -99,7 +105,7 @@ def test_port_files_are_found():
             "torch_gradual_pruning.py", "torch_oneshot_prune_arch.py",
             "whisper_large_v3.py", "hymba_1p5b.py",
             "llama32_vision_11b.py", "subproc.py", "sharding.py",
-            "activation.py"} <= names
+            "activation.py", "compression.py"} <= names
 
 
 def _example_main(path: pathlib.Path):

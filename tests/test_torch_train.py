@@ -395,9 +395,19 @@ def test_eval_step_is_the_loss_without_grad(ref_pair):
 
 
 def test_trainer_refuses_a_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        Trainer(CFG, TrainConfig(), ckpt_dir=str(tmp_path), mesh=object(),
-                device="cpu")
+    """A mesh without the logical axis specs raises the reference's
+    ValueError; a "model" axis of more than one rank (tensor
+    parallelism, ROADMAP Queue 1 item 6d) raises NotImplementedError.
+    The mesh trainer itself runs in tests/test_torch_mesh_train.py."""
+    from repro_torch.distributed import Mesh
+    from repro_torch.models import model_specs
+    with pytest.raises(ValueError, match="specs"):
+        Trainer(CFG, TrainConfig(), ckpt_dir=str(tmp_path),
+                mesh=Mesh((2,), ("data",)), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6d"):
+        Trainer(CFG, TrainConfig(), ckpt_dir=str(tmp_path),
+                mesh=Mesh((2, 2), ("data", "model")),
+                specs=model_specs(CFG), device="cpu")
 
 
 # ----------------------------------------------------------------------
